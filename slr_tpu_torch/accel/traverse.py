@@ -1,0 +1,592 @@
+"""Worklist-driven closest-hit and any-hit casts (counterpart of
+slr_tpu/accel/pallas_intersect.py).
+
+The chunk tables keep the reference's layout (`PallasTris`, built on the
+host), so the two packages' tables compare leaf by leaf. The casts follow
+the reference's wrappers `intersect_pallas` / `anyhit_pallas`: per-ray
+ranges with inert inactive lanes, the scene-exit clamp of tmax, packed rays,
+per-block culled near-sorted worklists (built here with plain tensor ops),
+then the traversal, then slot remap and Möller-Trumbore barycentrics.
+
+The traversal is `closest_hit` / `any_hit`: on CUDA tensors they launch the
+hand-written kernels of `csrc/traverse.cu`; on CPU tensors they run their
+plain PyTorch versions (`closest_hit_plain` / `any_hit_plain`), which walk
+the same worklists with the same arithmetic in the same order. A CUDA
+tensor never takes the plain path.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.math3d import cross
+from .intersect import RAY_EPSILON, Hit, moller_trumbore
+
+Tensor = torch.Tensor
+
+RB = 256
+DEFAULT_CHUNK = 128
+ROWS = 16
+T_FAR = 3e38
+KCOLS = 24     # kernel row per triangle: e0(6) e1(6) e2(6) n(3) d0 pad pad
+MAX_CHUNK = 128
+
+# Kernel launches since the last reset, by kernel name. Only the CUDA
+# launches count; the plain versions do not.
+LAUNCHES = {"closest_hit": 0, "any_hit": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Chunk tables
+# ---------------------------------------------------------------------------
+
+def kernel_tris(tris: Tensor, chunk: int) -> Tensor:
+    """(NC, 16, >=5C) reference chunk tables -> (NC, C, 24) kernel rows
+    [e0(6) e1(6) e2(6) n(3) d0 0 0]. Column `col*C + slot` of the reference
+    layout holds triangle `slot`'s column `col` (edges 0-2, n.d, num)."""
+    nc = tris.shape[0]
+    cols = [tris[:, 0:6, 0:chunk], tris[:, 0:6, chunk:2 * chunk],
+            tris[:, 0:6, 2 * chunk:3 * chunk], tris[:, 0:3, 3 * chunk:4 * chunk],
+            tris[:, 9:10, 4 * chunk:5 * chunk],
+            torch.zeros((nc, 2, chunk), dtype=tris.dtype, device=tris.device)]
+    return torch.cat(cols, dim=1).transpose(1, 2).contiguous()
+
+
+@dataclasses.dataclass
+class PallasTris:
+    """Triangle chunk tables (reference layout) plus the kernels' compact
+    per-triangle rows.
+
+    tris:  (NC, 16, 5C') f32 Plücker chunk tables (C' >= C, zero padded)
+    boxes: (NE, 8) f32 per-entry AABB + nonempty flag
+    remap: (NC*C,) int32 kernel slot -> triangle id (-1 = padding)
+    entry_chunk / entry_inst: (NE,) int32 chunk and instance per entry
+    inst_trs: (I, 24) f32 instance transforms (instanced scenes only)
+    tri24: (NC, C, 24) f32 derived kernel rows (see `kernel_tris`)
+    instanced: whether any entry is instanced (host flag, set at build)
+    """
+
+    tris: Tensor
+    boxes: Tensor
+    remap: Tensor
+    entry_chunk: Tensor = None
+    entry_inst: Tensor = None
+    inst_trs: Tensor = None
+    tri24: Tensor = None
+    instanced: bool = None
+
+    def __post_init__(self):
+        if self.entry_chunk is None:
+            self.entry_chunk = torch.arange(self.n_chunks, dtype=torch.int32,
+                                            device=self.tris.device)
+        if self.entry_inst is None:
+            self.entry_inst = torch.full((self.n_chunks,), -1,
+                                         dtype=torch.int32,
+                                         device=self.tris.device)
+        if self.instanced is None:
+            self.instanced = bool((self.entry_inst >= 0).any())
+        if self.tri24 is None:
+            self.tri24 = kernel_tris(self.tris, self.chunk)
+
+    @property
+    def chunk(self) -> int:
+        return self.remap.shape[0] // self.tris.shape[0]
+
+    @property
+    def n_chunks(self) -> int:
+        return self.tris.shape[0]
+
+    @property
+    def n_entries(self) -> int:
+        return self.boxes.shape[0]
+
+
+def build_super_boxes(boxes: np.ndarray, g: int = 16,
+                      small: int = 48) -> np.ndarray:
+    """Union AABBs over groups of `g` consecutive entries; small tables keep
+    per-entry granularity."""
+    b = np.asarray(boxes, np.float32)
+    ne = b.shape[0]
+    if ne <= small:
+        return b.copy()
+    ns = -(-ne // g)
+    sup = np.zeros((ns, 8), np.float32)
+    for i in range(ns):
+        grp = b[i * g:(i + 1) * g]
+        val = grp[:, 6] > 0.5
+        if val.any():
+            sup[i, 0:3] = grp[val, 0:3].min(axis=0)
+            sup[i, 3:6] = grp[val, 3:6].max(axis=0)
+            sup[i, 6] = 1.0
+    return sup
+
+
+def _safe_inv(d: Tensor) -> Tensor:
+    return 1.0 / torch.where(d.abs() < 1e-20,
+                             torch.where(d >= 0, 1e-20, -1e-20), d)
+
+
+def nearest_super_tn(o: Tensor, d: Tensor, super_boxes: Tensor) -> Tensor:
+    """Per-ray near distance (>= 0) of the nearest slab-hit super box;
+    T_FAR when the ray misses all of them."""
+    ot, dt = o.T, d.T
+    inv = _safe_inv(dt)
+    ns, r = super_boxes.shape[0], o.shape[0]
+    tn = torch.full((ns, r), -T_FAR, device=o.device)
+    tf = torch.full((ns, r), T_FAR, device=o.device)
+    for a in range(3):
+        t0 = (super_boxes[:, a][:, None] - ot[a][None, :]) * inv[a][None, :]
+        t1 = (super_boxes[:, 3 + a][:, None] - ot[a][None, :]) * inv[a][None, :]
+        tn = torch.maximum(tn, torch.minimum(t0, t1))
+        tf = torch.minimum(tf, torch.maximum(t0, t1))
+    ok = (tn <= tf) & (tf >= 0.0) & (super_boxes[:, 6][:, None] > 0.5)
+    return torch.where(ok, torch.clamp(tn, min=0.0), T_FAR).amin(0)
+
+
+def _morton_order(cent: np.ndarray) -> np.ndarray:
+    lo = cent.min(axis=0)
+    ext = np.maximum(cent.max(axis=0) - lo, 1e-12)
+    q = np.clip((cent - lo) / ext * 1023.0, 0, 1023).astype(np.uint64)
+
+    def expand(v):
+        v = (v | (v << np.uint64(16))) & np.uint64(0x030000FF)
+        v = (v | (v << np.uint64(8))) & np.uint64(0x0300F00F)
+        v = (v | (v << np.uint64(4))) & np.uint64(0x030C30C3)
+        v = (v | (v << np.uint64(2))) & np.uint64(0x09249249)
+        return v
+
+    code = (expand(q[:, 0]) << np.uint64(2)) | (expand(q[:, 1]) << np.uint64(1)) \
+        | expand(q[:, 2])
+    return np.argsort(code, kind="stable").astype(np.int32)
+
+
+def build_pallas_tris(geom, chunk: int = DEFAULT_CHUNK, bvh=None) -> PallasTris:
+    """Morton-sliced chunk tables of `geom`'s triangles (host, numpy).
+    Treelet chunking from an SBVH is not ported yet."""
+    if bvh is not None:
+        raise NotImplementedError("SBVH treelet chunking is not ported yet")
+    pos = np.asarray(geom.positions)
+    tri = np.asarray(geom.tri_vidx)
+    t = len(tri)
+    if t > 1:
+        order = _morton_order((pos[tri[:, 0]] + pos[tri[:, 1]]
+                               + pos[tri[:, 2]]) / 3.0)
+    else:
+        order = np.zeros((max(t, 1),), np.int32)
+    chunk_tris = [order[i:i + chunk] for i in range(0, max(t, 1), chunk)]
+
+    nc = len(chunk_tris)
+    slot_tri = np.zeros((nc, chunk), np.int64)
+    slot_valid = np.zeros((nc, chunk), bool)
+    boxes = np.zeros((nc, 8), np.float32)
+    for c, ids in enumerate(chunk_tris):
+        k = len(ids)
+        slot_tri[c, :k] = ids
+        slot_valid[c, :k] = True
+        if k:
+            pts = pos[tri[ids].reshape(-1)]
+            boxes[c, 0:3] = pts.min(axis=0)
+            boxes[c, 3:6] = pts.max(axis=0)
+            boxes[c, 6] = 1.0
+
+    flat_tri = slot_tri.reshape(-1)
+    p0 = pos[tri[flat_tri, 0]]
+    p1 = pos[tri[flat_tri, 1]]
+    p2 = pos[tri[flat_tri, 2]]
+    v = slot_valid.reshape(-1)
+    p0[~v] = 0.0
+    p1[~v] = 0.0
+    p2[~v] = 0.0
+
+    def edge6(a, b):
+        return np.concatenate([np.cross(a, b), b - a], axis=-1)
+
+    e = np.stack([edge6(p0, p1), edge6(p1, p2), edge6(p2, p0)], axis=1)
+    n = np.cross(p1 - p0, p2 - p0)
+    d0 = np.einsum("ij,ij->i", n, p0)
+
+    tris = np.zeros((nc * chunk, ROWS, 5), np.float32)
+    tris[:, 0:6, 0] = e[:, 0]
+    tris[:, 0:6, 1] = e[:, 1]
+    tris[:, 0:6, 2] = e[:, 2]
+    tris[:, 0:3, 3] = n
+    tris[:, 6:9, 4] = -n
+    tris[:, 9, 4] = d0
+    tris = tris.reshape(nc, chunk, ROWS, 5).transpose(0, 2, 3, 1).reshape(
+        nc, ROWS, 5 * chunk)
+    # The reference pads the minor dim to a multiple of 128 for TPU DMA
+    # alignment; keep its shape so the tables compare leaf by leaf.
+    wpad = -(-(5 * chunk) // 128) * 128
+    if wpad != 5 * chunk:
+        tris = np.concatenate(
+            [tris, np.zeros((nc, ROWS, wpad - 5 * chunk), np.float32)], axis=2)
+    remap = np.where(v, flat_tri, -1).astype(np.int32)
+    return PallasTris(
+        tris=torch.from_numpy(tris),
+        boxes=torch.from_numpy(boxes),
+        remap=torch.from_numpy(remap),
+        entry_chunk=torch.arange(nc, dtype=torch.int32),
+        entry_inst=torch.full((nc,), -1, dtype=torch.int32),
+        inst_trs=torch.zeros((1, 24), dtype=torch.float32),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Rays and worklists (plain tensor ops around the kernels)
+# ---------------------------------------------------------------------------
+
+def _per_ray(v, r: int, device) -> Tensor:
+    if isinstance(v, Tensor):
+        return torch.broadcast_to(v.to(torch.float32), (r,))
+    return torch.full((r,), v, dtype=torch.float32, device=device)
+
+
+def _ray_ranges(r: int, tmin, tmax, active, device) -> tuple[Tensor, Tensor]:
+    """Per-ray [tmin, tmax]; inactive lanes get the degenerate range
+    [T_FAR, -T_FAR] so they opt out of culling, traversal and early-outs.
+    Scalar bounds are filled on the device (no host-to-device copy)."""
+    tmin_a = _per_ray(tmin, r, device)
+    tmax_a = torch.clamp(_per_ray(tmax, r, device), max=T_FAR)
+    if active is not None:
+        tmin_a = torch.where(active, tmin_a, T_FAR)
+        tmax_a = torch.where(active, tmax_a, -T_FAR)
+    return tmin_a, tmax_a
+
+
+def _scene_exit_clamp(o: Tensor, d: Tensor, tmax_a: Tensor,
+                      boxes: Tensor) -> Tensor:
+    """Clamp tmax to the exit distance from the union of the entry boxes, so
+    the near-sorted break fires for rays that miss everything."""
+    valid = boxes[:, 6] > 0.5
+    lo = torch.where(valid[:, None], boxes[:, 0:3], T_FAR).amin(0)
+    hi = torch.where(valid[:, None], boxes[:, 3:6], -T_FAR).amax(0)
+    inv = _safe_inv(d)
+    t0 = (lo[None, :] - o) * inv
+    t1 = (hi[None, :] - o) * inv
+    tf = torch.maximum(t0, t1).amin(1)
+    exit_t = torch.clamp(tf, min=0.0) * 1.0001 + 1e-4
+    return torch.minimum(tmax_a, exit_t)
+
+
+def _pack_rays(o: Tensor, d: Tensor, tmin_a: Tensor, tmax_a: Tensor,
+               rb: int = RB) -> tuple[Tensor, int]:
+    """(R, 3)x2 + (R,)x2 -> (NB, 16, rb) rows [d, m = o x d, o, 1, tmin,
+    tmax, 0...]. Padding lanes are inert: degenerate [T_FAR, -T_FAR]."""
+    r = o.shape[0]
+    nb = -(-r // rb)
+    rays = torch.zeros((nb * rb, ROWS), dtype=torch.float32, device=o.device)
+    rays[:r, 0:3] = d
+    rays[:r, 3:6] = cross(o, d)
+    rays[:r, 6:9] = o
+    rays[:r, 9] = 1.0
+    rays[:r, 10] = tmin_a
+    rays[:r, 11] = tmax_a
+    rays[r:, 2] = 1.0
+    rays[r:, 10] = T_FAR
+    rays[r:, 11] = -T_FAR
+    return rays.reshape(nb, rb, ROWS).transpose(1, 2).contiguous(), nb
+
+
+def _chunk_worklist(rays: Tensor, boxes: Tensor,
+                    slice_w: int = 512) -> tuple[Tensor, Tensor, Tensor]:
+    """Per-block culled, front-to-back ordered entry worklists: exact
+    per-ray slab tests against every entry box, OR-reduced over each block,
+    entries sorted by block-entry distance. Returns (wl (NB*NE,) int32,
+    count (NB,) int32, near (NB*NE,) f32); entries past `count` repeat the
+    last valid one."""
+    nb, _, rb = rays.shape
+    ne = boxes.shape[0]
+    o = rays[:, 6:9, :]
+    inv = _safe_inv(rays[:, 0:3, :])
+    tminr = rays[:, 10, :]
+    tmaxr = rays[:, 11, :]
+    blk_parts, tn_parts = [], []
+    for s0 in range(0, ne, slice_w):
+        bsl = boxes[s0:s0 + slice_w]
+        ns = bsl.shape[0]
+        tn = torch.full((nb, ns, rb), -T_FAR, device=rays.device)
+        tf = torch.full((nb, ns, rb), T_FAR, device=rays.device)
+        for a in range(3):
+            lo = bsl[:, a][None, :, None]
+            hi = bsl[:, 3 + a][None, :, None]
+            t0 = (lo - o[:, a, None, :]) * inv[:, a, None, :]
+            t1 = (hi - o[:, a, None, :]) * inv[:, a, None, :]
+            tn = torch.maximum(tn, torch.minimum(t0, t1))
+            tf = torch.minimum(tf, torch.maximum(t0, t1))
+        ok = ((tn <= tf) & (tf >= tminr[:, None, :])
+              & (tn <= tmaxr[:, None, :]) & (bsl[:, 6][None, :, None] > 0.5))
+        blk_parts.append(ok.any(2))
+        tn_parts.append(torch.where(ok, tn, T_FAR).amin(2))
+    blk = torch.cat(blk_parts, dim=1)                          # (NB, NE)
+    tn_blk = torch.cat(tn_parts, dim=1)
+    key = torch.where(blk, tn_blk, float("inf"))
+    near, order = torch.sort(key, dim=1, stable=True)
+    near = torch.clamp(near, max=T_FAR)
+    count = blk.sum(1)
+    last = torch.gather(order, 1, torch.clamp(count - 1, min=0)[:, None])
+    pos = torch.arange(ne, device=rays.device)[None, :]
+    wl = torch.where(pos < count[:, None], order, last)
+    return (wl.to(torch.int32).reshape(-1), count.to(torch.int32),
+            near.reshape(-1).contiguous())
+
+
+def _auto_rb(pt: PallasTris) -> int:
+    """Rays per kernel block: smaller blocks keep per-block worklist unions
+    tight once tables have many entries."""
+    return 128 if pt.n_entries > 128 else RB
+
+
+def _refuse_instanced(pt: PallasTris) -> None:
+    if pt.instanced:
+        raise NotImplementedError(
+            "instanced chunk tables (entry_inst >= 0) need the in-kernel "
+            "instance transform, which is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions of the kernels
+# ---------------------------------------------------------------------------
+
+def _ray_rows(rays: Tensor):
+    return [rays[:, i, :, None] for i in range(12)]            # (NB, RB, 1)
+
+
+def _plucker_terms(rows, tk: Tensor):
+    """tk (NB, 1, C, 24): the three side products, n.d and d0 - n.o, in the
+    kernel's order of operations."""
+    dx, dy, dz, mx, my, mz, ox, oy, oz = rows[:9]
+    T = [tk[..., j] for j in range(22)]
+    s0 = dx * T[0] + dy * T[1] + dz * T[2] + mx * T[3] + my * T[4] + mz * T[5]
+    s1 = (dx * T[6] + dy * T[7] + dz * T[8] + mx * T[9] + my * T[10]
+          + mz * T[11])
+    s2 = (dx * T[12] + dy * T[13] + dz * T[14] + mx * T[15] + my * T[16]
+          + mz * T[17])
+    through = (((s0 >= 0) & (s1 >= 0) & (s2 >= 0))
+               | ((s0 <= 0) & (s1 <= 0) & (s2 <= 0)))
+    den = T[18] * dx + T[19] * dy + T[20] * dz
+    num = T[21] - (T[18] * ox + T[19] * oy + T[20] * oz)
+    return through, den, num
+
+
+def _entry_tables(pt: PallasTris, wl2: Tensor, k: int) -> tuple[Tensor, Tensor]:
+    ch = pt.entry_chunk.to(torch.int64)[wl2[:, k]]             # (NB,)
+    return ch, pt.tri24[ch][:, None]                           # (NB,1,C,24)
+
+
+def closest_hit_plain(rays: Tensor, wl: Tensor, cnt: Tensor,
+                      pt: PallasTris) -> tuple[Tensor, Tensor, Tensor]:
+    """The closest-hit kernel's function in plain PyTorch: every worklist
+    entry of each block, in order, with no culling (culled entries cannot
+    hold a closer hit)."""
+    nb, _, rb = rays.shape
+    rows = _ray_rows(rays)
+    tmin = rows[10]
+    best = rays[:, 11, :].clone()
+    idx = torch.full((nb, rb), -1, dtype=torch.int64, device=rays.device)
+    wl2 = wl.reshape(nb, -1).to(torch.int64)
+    chunk = pt.chunk
+    for k in range(int(cnt.max()) if nb else 0):
+        ch, tk = _entry_tables(pt, wl2, k)
+        through, den, num = _plucker_terms(rows, tk)
+        ok = den.abs() > 1e-12
+        t = num / torch.where(ok, den, 1.0)
+        hit = (through & ok & (t >= tmin) & (t < best[..., None])
+               & (k < cnt)[:, None, None])
+        t_min, a_min = torch.where(hit, t, float("inf")).min(-1)
+        closer = t_min < best
+        best = torch.where(closer, t_min, best)
+        idx = torch.where(closer, ch[:, None] * chunk + a_min, idx)
+    return best, idx.to(torch.int32), torch.full_like(idx, -1, dtype=torch.int32)
+
+
+def any_hit_plain(rays: Tensor, wl: Tensor, cnt: Tensor,
+                  pt: PallasTris) -> Tensor:
+    """The any-hit kernel's function in plain PyTorch (occluded, int32)."""
+    nb, _, rb = rays.shape
+    rows = _ray_rows(rays)
+    tmin, tmax = rows[10], rows[11]
+    occ = torch.zeros((nb, rb), dtype=torch.bool, device=rays.device)
+    wl2 = wl.reshape(nb, -1).to(torch.int64)
+    for k in range(int(cnt.max()) if nb else 0):
+        _, tk = _entry_tables(pt, wl2, k)
+        through, den, num = _plucker_terms(rows, tk)
+        lo = num - tmin * den
+        hi = num - tmax * den
+        hit = through & (lo * hi <= 0) & (den.abs() > 1e-12) & (tmax >= tmin)
+        occ = occ | (hit.any(-1) & (k < cnt)[:, None])
+    return occ.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _ptr(t: Tensor | None):
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry points of csrc/traverse.cu: pointers, then sizes, then the stream.
+_SIGNATURES = {
+    "slr_closest_hit": [_P] * 11 + [_I] * 4 + [_P],
+    "slr_any_hit": [_P] * 9 + [_I] * 4 + [_P],
+}
+
+
+def _library():
+    from ..core.cuda_build import load_library
+
+    return load_library("traverse", _SIGNATURES)
+
+
+def _check_kernel_args(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
+                       pt: PallasTris, tests: Tensor | None) -> tuple[int, int, int]:
+    nb, rows, rb = rays.shape
+    ne = pt.n_entries
+    dev = rays.device
+    want = [(rays, torch.float32, (nb, ROWS, rb)),
+            (wl, torch.int32, (nb * ne,)), (wtn, torch.float32, (nb * ne,)),
+            (cnt, torch.int32, (nb,)), (pt.boxes, torch.float32, (ne, 8)),
+            (pt.entry_chunk, torch.int32, (ne,)),
+            (pt.tri24, torch.float32, (pt.n_chunks, pt.chunk, KCOLS))]
+    if tests is not None:
+        want.append((tests, torch.int32, (nb,)))
+    for t, dtype, shape in want:
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"traversal kernel argument {tuple(t.shape)} {t.dtype} on "
+                f"{t.device}: expected contiguous {shape} {dtype} on {dev}")
+    if rows != ROWS or rb % 32 or not 32 <= rb <= 1024:
+        raise ValueError(f"ray block of {rb} lanes is not supported")
+    if pt.chunk > MAX_CHUNK:
+        raise ValueError(f"chunk width {pt.chunk} is not supported")
+    return nb, rb, ne
+
+
+def closest_hit(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
+                pt: PallasTris, tests: Tensor | None = None
+                ) -> tuple[Tensor, Tensor, Tensor]:
+    """Closest hit per packed ray over its block's worklist.
+    Returns (best_t (NB, RB) f32, best_idx = chunk*C + slot int32,
+    best_inst int32 = -1). `tests` (NB,) int32, if given, receives the
+    number of ray-triangle tests each kernel block's rays need: those of
+    live rays against the chunks whose box they meet.
+
+    Replaces the TPU kernel of slr_tpu/accel/pallas_intersect.py
+    `_run_kernel` (`_kernel_smallwl` / `_kernel` -> `_traverse_closest`).
+    Its floor on an H100 is fp32 arithmetic (45 operations per ray-triangle
+    test; triangle rows come from shared memory, so DRAM bytes are small);
+    the kernel visits only the entries some ray of the block can still hit
+    closer. With one thread per ray it is latency-bound well above that
+    floor at the main path's lane count (see csrc/traverse.cu)."""
+    _refuse_instanced(pt)
+    if rays.device.type == "cpu":
+        return closest_hit_plain(rays, wl, cnt, pt)
+    if rays.device.type != "cuda":
+        raise ValueError(f"closest_hit: unsupported device {rays.device}")
+    from ..core.cuda_build import check
+
+    nb, rb, ne = _check_kernel_args(rays, wl, wtn, cnt, pt, tests)
+    lib = _library()
+    best_t = torch.empty((nb, rb), dtype=torch.float32, device=rays.device)
+    best_idx = torch.empty((nb, rb), dtype=torch.int32, device=rays.device)
+    best_inst = torch.empty((nb, rb), dtype=torch.int32, device=rays.device)
+    code = lib.slr_closest_hit(
+        _ptr(rays), _ptr(wl), _ptr(wtn), _ptr(cnt), _ptr(pt.boxes),
+        _ptr(pt.entry_chunk), _ptr(pt.tri24), _ptr(best_t), _ptr(best_idx),
+        _ptr(best_inst), _ptr(tests), nb, rb, ne, pt.chunk,
+        ctypes.c_void_p(torch.cuda.current_stream(rays.device).cuda_stream))
+    check(lib, code, "closest_hit launch")
+    LAUNCHES["closest_hit"] += 1
+    return best_t, best_idx, best_inst
+
+
+def any_hit(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
+            pt: PallasTris, tests: Tensor | None = None) -> Tensor:
+    """Occlusion per packed ray: 1 when some triangle has t in
+    [tmin, tmax]. Returns (NB, RB) int32; `tests` as in `closest_hit`.
+
+    Replaces the TPU kernel of slr_tpu/accel/pallas_intersect.py
+    `_run_kernel_any` (`_kernel_any_smallwl` / `_kernel_any` ->
+    `_traverse_any`). Its floor is fp32 arithmetic like closest_hit's (49
+    operations per test, divide-free); a block stops once its live rays
+    are all occluded."""
+    _refuse_instanced(pt)
+    if rays.device.type == "cpu":
+        return any_hit_plain(rays, wl, cnt, pt)
+    if rays.device.type != "cuda":
+        raise ValueError(f"any_hit: unsupported device {rays.device}")
+    from ..core.cuda_build import check
+
+    nb, rb, ne = _check_kernel_args(rays, wl, wtn, cnt, pt, tests)
+    lib = _library()
+    occ = torch.empty((nb, rb), dtype=torch.int32, device=rays.device)
+    code = lib.slr_any_hit(
+        _ptr(rays), _ptr(wl), _ptr(wtn), _ptr(cnt), _ptr(pt.boxes),
+        _ptr(pt.entry_chunk), _ptr(pt.tri24), _ptr(occ), _ptr(tests), nb, rb,
+        ne, pt.chunk,
+        ctypes.c_void_p(torch.cuda.current_stream(rays.device).cuda_stream))
+    check(lib, code, "any_hit launch")
+    LAUNCHES["any_hit"] += 1
+    return occ
+
+
+# ---------------------------------------------------------------------------
+# Casts (the reference's host-facing entry points)
+# ---------------------------------------------------------------------------
+
+def prepare_cast(pt: PallasTris, o: Tensor, d: Tensor, tmin, tmax,
+                 active: Tensor | None, rb: int | None = None):
+    """Ranges, exit clamp, packed rays and worklists for one cast.
+    Returns (rays, wl, cnt, wtn, tmax_a)."""
+    r = o.shape[0]
+    rb = rb or _auto_rb(pt)
+    tmin_a, tmax_a = _ray_ranges(r, tmin, tmax, active, o.device)
+    tmax_a = _scene_exit_clamp(o, d, tmax_a, pt.boxes)
+    rays, _ = _pack_rays(o, d, tmin_a, tmax_a, rb)
+    wl, cnt, wtn = _chunk_worklist(rays, pt.boxes)
+    return rays, wl, cnt, wtn, tmax_a
+
+
+def anyhit_pallas(geom, pt: PallasTris, o: Tensor, d: Tensor,
+                  tmin=RAY_EPSILON, tmax=float("inf"),
+                  active: Tensor | None = None, rb: int | None = None) -> Tensor:
+    """Occlusion query (bool per ray): True if anything lies in
+    [tmin, tmax]."""
+    r = o.shape[0]
+    rays, wl, cnt, wtn, _ = prepare_cast(pt, o, d, tmin, tmax, active, rb)
+    return any_hit(rays, wl, wtn, cnt, pt).reshape(-1)[:r] > 0
+
+
+def intersect_pallas(geom, pt: PallasTris, o: Tensor, d: Tensor,
+                     tmin=RAY_EPSILON, tmax=float("inf"),
+                     active: Tensor | None = None, rb: int | None = None) -> Hit:
+    """Closest hit via the worklist traversal, then the winning slot's
+    triangle and its Möller-Trumbore barycentrics."""
+    r = o.shape[0]
+    rays, wl, cnt, wtn, tmax_a = prepare_cast(pt, o, d, tmin, tmax, active, rb)
+    best_t, best_idx, _ = closest_hit(rays, wl, wtn, cnt, pt)
+    best_t = best_t.reshape(-1)[:r]
+    slot = best_idx.reshape(-1)[:r].to(torch.int64)
+    tri = torch.where(slot >= 0,
+                      pt.remap.to(torch.int64)[torch.clamp(slot, min=0)], -1)
+    mask = (tri >= 0) & (best_t < T_FAR) & (best_t < tmax_a * (1.0 + 1e-6))
+    row = geom.tri_table[torch.clamp(tri, min=0)]
+    p0 = row[:, 0:3]
+    p1 = p0 + row[:, 3:6]
+    p2 = p0 + row[:, 6:9]
+    t_mt, b1, b2, _ = moller_trumbore(o, d, p0, p1, p2, 0.0, float("inf"))
+    b1 = torch.clamp(b1, 0.0, 1.0)
+    b2 = torch.clamp(b2, 0.0, 1.0)
+    return Hit(t=torch.where(mask, t_mt, float("inf")),
+               tri=torch.where(mask, tri, -1), b0=1.0 - b1 - b2, b1=b1,
+               mask=mask)

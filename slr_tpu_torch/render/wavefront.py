@@ -1,0 +1,342 @@
+"""Persistent-wavefront path tracer with a dynamic global work queue
+(counterpart of slr_tpu/render/wavefront.py).
+
+Lanes are not pinned to pixels. A global counter enumerates (pixel, sample)
+work items (work = sample * n_pix + pixel); when a lane's path ends it adds
+its sample to the film and claims the next item through an exclusive prefix
+sum over this iteration's finishers. Every iteration makes one closest-hit
+cast and one shadow cast per lane. The random streams are keyed by
+(pixel, sample, bounce, decision), so each work item's estimate does not
+depend on which lane traces it.
+
+The reference's `lax.while_loop` is a Python loop here, with one host sync
+per iteration to test for remaining work. Work counters are uint32 values
+held in int64.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..accel.intersect import RAY_EPSILON, sample_triangle_point
+from ..bsdf.bsdf import (
+    bsdf_evaluate,
+    bsdf_has_nondelta,
+    bsdf_pdf,
+    bsdf_sample,
+    emitted_radiance,
+    gather_lobes,
+    is_emissive,
+)
+from ..camera.perspective import sample_camera_rays
+from ..core import rng
+from ..core.device import resolve_device
+from ..core.math3d import dot, frame_from_local, frame_to_local
+from ..core.rng import Decision
+from ..core.sampling import power_heuristic
+from ..scene.types import CameraKind, FlatScene
+from ..spectrum.rgb import importance
+from .pt import (
+    _area_light_prob,
+    _ray_sort_key,
+    _select_light,
+    resolve_sp,
+    scene_intersect_alpha,
+    scene_occluded,
+)
+
+Tensor = torch.Tensor
+
+DEFAULT_MAX_DEPTH = 100
+
+# Lanes in flight. The reference's default, kept because results do not
+# depend on it; tuning it for the card is separate work.
+DEFAULT_LANE_CAP = 49152
+
+
+class LaneState(NamedTuple):
+    """Per-lane persistent state; `work` >= total means the lane is drained."""
+
+    work: Tensor        # (R,) int64 global work item (uint32 value)
+    bounce: Tensor      # (R,) int64 casts completed for the current sample
+    ray_o: Tensor
+    ray_d: Tensor
+    alpha: Tensor       # (R, S)
+    radiance: Tensor    # (R, S)
+    cam_weight: Tensor  # (R,)
+    hero: Tensor        # (R,) int64
+    lambdas: Tensor     # (R, S) (zeros in RGB mode)
+    wl_selected: Tensor
+    prev_pdf: Tensor
+    prev_delta: Tensor
+    last: Tensor        # in-flight segment is the path's last (RR killed it)
+    rr_scale: Tensor    # 1/cont_p of the RR draw that allowed this segment
+    init_y: Tensor
+    f_time: Tensor
+
+
+def _work_pixel_sample(work: Tensor, n_pix: int, sample_offset: int):
+    return work % n_pix, sample_offset + work // n_pix
+
+
+def _camera_ray(scene: FlatScene, pid: Tensor, sid: Tensor, seed: int,
+                width: int, height: int):
+    if scene.camera.kind != CameraKind.PERSPECTIVE:
+        raise NotImplementedError("only the perspective camera is ported")
+    px = (pid % width).to(torch.float32)
+    py = (pid // width).to(torch.float32)
+    jx = rng.uniform(seed, pid, sid, 0, Decision.PIXEL_X)
+    jy = rng.uniform(seed, pid, sid, 0, Decision.PIXEL_Y)
+    lx = rng.uniform(seed, pid, sid, 0, Decision.LENS_U)
+    ly = rng.uniform(seed, pid, sid, 0, Decision.LENS_V)
+    return sample_camera_rays(scene.camera, px + jx, py + jy, width, height,
+                              lx, ly)
+
+
+def _fresh_sample(scene: FlatScene, pid: Tensor, sid: Tensor, seed: int,
+                  width: int, height: int, s: int, spectral: bool):
+    """Everything a lane needs to start the sample (pid, sid)."""
+    rays = _camera_ray(scene, pid, sid, seed, width, height)
+    u_wl = rng.uniform(seed, pid, sid, 0, Decision.WL_SELECT)
+    if spectral:
+        from ..spectrum.spectral import sample_wavelengths
+
+        u_off = rng.uniform(seed, pid, sid, 0, Decision.WAVELENGTH)
+        wls = sample_wavelengths(u_off, u_wl)
+        lambdas, hero = wls.lambdas, wls.hero
+    else:
+        lambdas = torch.zeros(pid.shape + (s,), dtype=torch.float32,
+                              device=pid.device)
+        hero = torch.clamp((u_wl * s).to(torch.int64), max=s - 1)
+    f_time = torch.zeros(pid.shape, dtype=torch.float32, device=pid.device)
+    return rays, hero, lambdas, f_time
+
+
+def _sample_value(radiance: Tensor, cam_weight: Tensor, lambdas: Tensor,
+                  spectral: bool) -> Tensor:
+    """One finished sample -> film-space contribution (R, S_film)."""
+    weighted = cam_weight[:, None] * radiance
+    if spectral:
+        from ..spectrum.spectral import NUM_SPECTRAL_SAMPLES, WL_HI, WL_LO, bin_to_strata
+
+        return bin_to_strata(
+            lambdas, weighted / (NUM_SPECTRAL_SAMPLES / (WL_HI - WL_LO)))
+    return weighted
+
+
+def _pick(cond: Tensor, a: Tensor, b: Tensor) -> Tensor:
+    return torch.where(cond.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
+
+
+def _run_wavefront(scene: FlatScene, n_pix: int, spp_end: int, seed: int,
+                   width: int, height: int, sample_offset: int,
+                   max_depth: int, n_lanes: int | None = None,
+                   sort_rays: bool = True) -> tuple[Tensor, int]:
+    """Trace work items [0, (spp_end - sample_offset) * n_pix). Returns
+    (film (n_pix, S_film), iterations)."""
+    from ..spectrum.spectral import NUM_SPECTRAL_SAMPLES, NUM_STRATA
+
+    dev = scene.device
+    spectral = scene.stex.spectral
+    s = NUM_SPECTRAL_SAMPLES if spectral else scene.stex.value.shape[-1]
+    s_film = NUM_STRATA if spectral else s
+    r = n_lanes or n_pix
+    total = (spp_end - sample_offset) * n_pix
+    if total >= 2 ** 32:
+        raise ValueError("the work queue counts in 32 bits")
+
+    work0 = torch.arange(r, dtype=torch.int64, device=dev)
+    pid0, sid0 = _work_pixel_sample(work0, n_pix, sample_offset)
+    rays, hero, lambdas, f_time = _fresh_sample(scene, pid0, sid0, seed,
+                                                width, height, s, spectral)
+    ones = torch.ones((r, s), dtype=torch.float32, device=dev)
+    false_ = torch.zeros((r,), dtype=torch.bool, device=dev)
+    lane = LaneState(
+        work=work0, bounce=torch.zeros((r,), dtype=torch.int64, device=dev),
+        ray_o=rays.o, ray_d=rays.d, alpha=ones,
+        radiance=torch.zeros((r, s), dtype=torch.float32, device=dev),
+        cam_weight=rays.weight, hero=hero, lambdas=lambdas,
+        wl_selected=false_, prev_pdf=torch.zeros((r,), device=dev),
+        prev_delta=false_, last=false_,
+        rr_scale=torch.ones((r,), device=dev), init_y=importance(ones, hero),
+        f_time=f_time)
+    counter = torch.tensor(r, dtype=torch.int64, device=dev)
+    film = torch.zeros((n_pix + 1, s_film), dtype=torch.float32, device=dev)
+    n_iters = 0
+
+    while bool((lane.work < total).any()):
+        lane_on = lane.work < total
+        pixel_id, sample_id = _work_pixel_sample(lane.work, n_pix,
+                                                 sample_offset)
+        lam_s = lane.lambdas if spectral else None
+
+        # ---- cast the in-flight ray -------------------------------------
+        hit = scene_intersect_alpha(scene, lane.ray_o, lane.ray_d,
+                                    active=lane_on)
+        sp = resolve_sp(scene, hit, lane.ray_o, lane.ray_d)
+        hit_ok = lane_on & hit.mask
+        first = lane.bounce == 0
+
+        # ---- emission at the hit ----------------------------------------
+        cos_out = dot(-lane.ray_d, sp.sn)
+        le = emitted_radiance(scene, sp.mat_id, sp.uv, cos_out, lam_s)
+        dp_ = sp.p - lane.ray_o
+        d2 = torch.clamp(dot(dp_, dp_), min=1e-12)
+        cos_g = dot(lane.ray_d, sp.gn).abs()
+        l_prob = _area_light_prob(scene)
+        light_pdf_hit = l_prob * sp.area_pdf * d2 / torch.clamp(cos_g,
+                                                                min=1e-12)
+        mis_b = torch.where(first | lane.prev_delta, 1.0,
+                            power_heuristic(lane.prev_pdf, light_pdf_hit))
+        emissive = hit_ok & is_emissive(scene.materials, sp.mat_id)
+        radiance = lane.radiance + torch.where(
+            emissive[:, None], lane.alpha * le * mis_b[:, None], 0.0)
+
+        # ---- shade: NEE + BSDF sample + RR -------------------------------
+        # Shading sees the RR-divided alpha; the emission above saw the
+        # undivided one.
+        alpha_sh = lane.alpha * lane.rr_scale[:, None]
+        bounce_id = lane.bounce + 1
+        fx, fy, fz = sp.tangent, sp.bitangent, sp.sn
+        wo = frame_to_local(fx, fy, fz, -lane.ray_d)
+        gn_sn = frame_to_local(fx, fy, fz, sp.gn)
+        lobes = gather_lobes(scene, sp.mat_id, sp.uv, sp.p, lam_s)
+        nondelta = bsdf_has_nondelta(lobes)
+
+        u_sel = rng.uniform(seed, pixel_id, sample_id, bounce_id,
+                            Decision.LIGHT_SELECT)
+        lu0 = rng.uniform(seed, pixel_id, sample_id, bounce_id,
+                          Decision.LIGHT_POS_U)
+        lu1 = rng.uniform(seed, pixel_id, sample_id, bounce_id,
+                          Decision.LIGHT_POS_V)
+        light_tri, light_prob, is_env = _select_light(scene, u_sel)
+        lp = sample_triangle_point(scene.geometry, light_tri, lu0, lu1)
+
+        delta_p = lp.p - sp.p
+        dist2 = torch.clamp(dot(delta_p, delta_p), min=1e-12)
+        dist = torch.sqrt(dist2)
+        shadow_dir = delta_p / dist[:, None]
+        shadow_tmax = dist * (1.0 - 1e-3)
+
+        # NEE at hit b contributes a path of b+1 segments, allowed iff
+        # b < max_depth; the same condition gates extending.
+        depth_ok = (lane.bounce < max_depth) & ~lane.last
+        vis = ~scene_occluded(scene, sp.p, shadow_dir, RAY_EPSILON,
+                              shadow_tmax, active=hit_ok & depth_ok & nondelta)
+        shadow_dir_sn = frame_to_local(fx, fy, fz, shadow_dir)
+        fs_nee = bsdf_evaluate(lobes, wo, shadow_dir_sn, gn_sn, lane.hero)
+        pdf_bsdf_w = bsdf_pdf(lobes, wo, shadow_dir_sn, gn_sn, lane.hero)
+
+        cos_light_s = dot(-shadow_dir, lp.sn)
+        le_nee = emitted_radiance(scene, lp.mat_id, lp.uv, cos_light_s, lam_s)
+        light_pdf = light_prob * lp.area_pdf
+        cos_light = dot(-shadow_dir, lp.gn).abs()
+        bsdf_pdf_sa = pdf_bsdf_w * cos_light / dist2
+        mis_w = power_heuristic(light_pdf, bsdf_pdf_sa)
+        g = dot(shadow_dir_sn, gn_sn).abs() * cos_light / dist2
+        contrib_nee = (alpha_sh * le_nee * fs_nee
+                       * (g * mis_w / torch.clamp(light_pdf, min=1e-30))[:, None])
+        nee_ok = (hit_ok & depth_ok & nondelta & vis & (light_pdf > 0)
+                  & ~is_env)
+        radiance = radiance + torch.where(nee_ok[:, None], contrib_nee, 0.0)
+
+        uc = rng.uniform(seed, pixel_id, sample_id, bounce_id,
+                         Decision.BSDF_COMPONENT)
+        u0 = rng.uniform(seed, pixel_id, sample_id, bounce_id, Decision.BSDF_U)
+        u1 = rng.uniform(seed, pixel_id, sample_id, bounce_id, Decision.BSDF_V)
+        smp = bsdf_sample(lobes, wo, gn_sn, lane.hero, lane.wl_selected,
+                          uc, u0, u1)
+        smp = smp._replace(wi=smp.wi.detach(), pdf=smp.pdf.detach())
+        dir_pdf = torch.where(smp.dispersive, smp.pdf / s, smp.pdf)
+        wl_sel_new = lane.wl_selected | smp.dispersive
+
+        cos_sn = dot(smp.wi, gn_sn).abs()
+        new_alpha = alpha_sh * smp.fs * (
+            cos_sn / torch.clamp(dir_pdf, min=1e-30))[:, None]
+        sample_ok = hit_ok & (dir_pdf > 0) & ~(smp.fs == 0.0).all(-1)
+
+        cont_p = torch.clamp(
+            importance(new_alpha, lane.hero)
+            / torch.clamp(lane.init_y, min=1e-30), max=1.0).detach()
+        u_rr = rng.uniform(seed, pixel_id, sample_id, bounce_id, Decision.RR)
+        survive = u_rr < cont_p
+        # RR-killed paths still cast this final segment (its Le is banked
+        # with the undivided alpha) and are flagged `last`; the survivor
+        # division is deferred through rr_scale.
+        rr_next = torch.where(survive, 1.0 / torch.clamp(cont_p, min=1e-30),
+                              1.0)
+        extend = sample_ok & depth_ok
+        dying = extend & ~survive
+
+        # ---- bank finished samples & claim new work ----------------------
+        finish = lane_on & ~extend
+        values = _sample_value(radiance, lane.cam_weight, lane.lambdas,
+                               spectral)
+        bank_idx = torch.where(finish, pixel_id, n_pix)
+        film.index_add_(0, bank_idx,
+                        torch.where(finish[:, None], values, 0.0))
+
+        fin = finish.to(torch.int64)
+        rank = torch.cumsum(fin, 0) - fin      # exclusive prefix sum
+        new_work = torch.where(finish, counter + rank, lane.work)
+        counter = counter + fin.sum()
+
+        regen = finish & (new_work < total)
+        n_pid, n_sid = _work_pixel_sample(new_work, n_pix, sample_offset)
+        n_rays, n_hero, n_lam, n_ft = _fresh_sample(
+            scene, n_pid, n_sid, seed, width, height, s, spectral)
+
+        lane = LaneState(
+            work=new_work,
+            bounce=torch.where(finish, 0, lane.bounce + 1),
+            ray_o=_pick(regen, n_rays.o, sp.p),
+            ray_d=_pick(regen, n_rays.d, frame_from_local(fx, fy, fz, smp.wi)),
+            alpha=_pick(finish, ones, new_alpha),
+            radiance=torch.where(finish[:, None], 0.0, radiance),
+            cam_weight=_pick(regen, n_rays.weight, lane.cam_weight),
+            hero=_pick(regen, n_hero, lane.hero),
+            lambdas=_pick(regen, n_lam, lane.lambdas),
+            wl_selected=torch.where(finish, False, wl_sel_new),
+            prev_pdf=torch.where(finish, 0.0, dir_pdf),
+            prev_delta=torch.where(finish, False, smp.is_delta),
+            last=torch.where(finish, False, dying),
+            rr_scale=torch.where(finish, 1.0, rr_next),
+            init_y=_pick(regen, importance(ones, n_hero), lane.init_y),
+            f_time=_pick(regen, n_ft, lane.f_time),
+        )
+
+        # ---- optional coherence re-sort (plain per-tensor indexing) ------
+        if sort_rays:
+            key = _ray_sort_key(scene, lane.ray_o, lane.ray_d,
+                                lane.work < total)
+            order = torch.argsort(key, stable=True)
+            lane = LaneState(*(x[order] for x in lane))
+        n_iters += 1
+
+    return film[:n_pix], n_iters
+
+
+def render_wavefront(scene: FlatScene, width: int, height: int, spp: int,
+                     seed: int = 0, max_depth: int = DEFAULT_MAX_DEPTH,
+                     sample_offset: int = 0, return_iters: bool = False,
+                     sort_rays: bool = True, n_lanes: int | None = None,
+                     device=None):
+    """Render `spp` samples per pixel. Returns the (H, W, 3) mean linear
+    radiance on `device` (default: the CUDA device; develop it with
+    render/film.py), and the iteration count when `return_iters`."""
+    from ..spectrum.spectral import strata_to_rgb
+
+    scene = scene.to(resolve_device(device))
+    n_pix = width * height
+    if n_lanes is None:
+        n_lanes = min(n_pix, DEFAULT_LANE_CAP)
+    film, n_iters = _run_wavefront(scene, n_pix, spp + sample_offset, seed,
+                                   width, height, sample_offset, max_depth,
+                                   n_lanes=n_lanes, sort_rays=sort_rays)
+    film = (film / spp).reshape(height, width, -1)
+    if scene.stex.spectral:
+        film = strata_to_rgb(film)
+    if return_iters:
+        return film, n_iters
+    return film

@@ -1,0 +1,395 @@
+"""Host-side scene builder: authoring calls -> FlatScene tensors
+(counterpart of slr_tpu/scene/build.py).
+
+The slice ports what the built-in Cornell scenes use: constant and
+tabulated spectra, matte/metal/glass/emitter materials, triangle meshes with
+baked static transforms and the perspective camera. Instancing, image /
+checker / voronoi textures, normal maps, the environment light and SBVH
+chunking (`use_bvh=True`) are not ported yet. All arrays are built with
+numpy on the host and become CPU tensors; `FlatScene.to` moves them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.sampling import build_continuous_2d, build_discrete_1d
+from .types import (
+    Camera,
+    CameraKind,
+    EnvLight,
+    FlatScene,
+    FloatTextures,
+    FTexKind,
+    Geometry,
+    Lights,
+    LobeKind,
+    Materials,
+    MAX_LOBES,
+    NormalTextures,
+    STexKind,
+    SpectrumTextures,
+)
+
+
+@dataclasses.dataclass
+class _STex:
+    kind: int
+    value: np.ndarray          # (S,) RGB, or (3,) Meng-Simon uvs in spectral mode
+    value2: np.ndarray
+    image_id: int = -1
+    map_scale: tuple = (1.0, 1.0)
+    map_offset: tuple = (0.0, 0.0)
+    curve_id: int = -1
+
+
+@dataclasses.dataclass
+class _FTex:
+    kind: int
+    value: float = 0.0
+    value2: float = 0.0
+    image_id: int = -1
+    map_scale: tuple = (1.0, 1.0)
+    map_offset: tuple = (0.0, 0.0)
+
+
+@dataclasses.dataclass
+class _Lobe:
+    kind: int
+    stex: tuple = (-1, -1, -1)
+    ftex: tuple = (-1, -1)
+    wtex: int = -1
+
+
+@dataclasses.dataclass
+class _Material:
+    lobes: list
+    emit_stex: int = -1
+
+
+def _t(a, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, dtype=dtype))
+
+
+class SceneBuilder:
+    """Accumulates host-side scene data, then `build()`s the FlatScene."""
+
+    def __init__(self, spectral_dim: int = 3, spectral: bool = False):
+        self.spectral = spectral
+        self.s = 3 if spectral else spectral_dim
+        self.curves: list[tuple[np.ndarray, np.ndarray]] = []
+        self.stex: list[_STex] = []
+        self.ftex: list[_FTex] = []
+        self.materials: list[_Material] = []
+        self.positions: list[np.ndarray] = []
+        self.normals: list[np.ndarray] = []
+        self.tangents: list[np.ndarray] = []
+        self.uvs: list[np.ndarray] = []
+        self.tri_vidx: list[np.ndarray] = []
+        self.tri_mat: list[np.ndarray] = []
+        self.tri_alpha: list[np.ndarray] = []
+        self.tri_ntex: list[np.ndarray] = []
+        self._nverts = 0
+        self.camera: Optional[Camera] = None
+
+    # -- textures -----------------------------------------------------------
+    def _spec(self, v, illuminant: bool = False) -> np.ndarray:
+        a = np.asarray(v, np.float32).reshape(-1)
+        if a.size == 1:
+            a = np.full((3,), a[0], np.float32)
+        if a.size != self.s:
+            raise ValueError(f"expected spectrum dim {self.s}, got {a.size}")
+        if self.spectral:
+            return self._rgb_to_uvs(a, illuminant)
+        return a
+
+    @staticmethod
+    def _rgb_to_uvs(rgb: np.ndarray, illuminant: bool) -> np.ndarray:
+        """Host-side sRGB -> Meng-Simon (u, v, scale), with reflectances
+        normalized so (1,1,1) evaluates to a flat spectrum of 1."""
+        from ..spectrum.spectral import _sRGB_E_to_XYZ, _sRGB_to_XYZ, upsampling_tables
+
+        m = _sRGB_to_XYZ if illuminant else _sRGB_E_to_XYZ
+        xyz = m @ rgb.astype(np.float32)
+        b = float(xyz.sum())
+        if b == 0:
+            xy = np.array([1 / 3, 1 / 3], np.float32)
+        else:
+            xy = (xyz[:2] / b).astype(np.float32)
+        u = 16.730260708356887 * xy[0] + 7.7801960340706 * xy[1] - 2.170152247475828
+        v = -7.530081094743006 * xy[0] + 16.192422314095225 * xy[1] + 1.1125529268825947
+        scale = b if illuminant else b / upsampling_tables()["eer"]
+        return np.array([u, v, scale], np.float32)
+
+    def add_stex_const(self, value, illuminant: bool = False) -> int:
+        self.stex.append(_STex(STexKind.CONST, self._spec(value, illuminant),
+                               np.zeros(self.s, np.float32)))
+        return len(self.stex) - 1
+
+    def add_curve(self, wls, values) -> int:
+        """Register a tabulated SPD (wavelengths in nm, ascending)."""
+        self.curves.append((np.asarray(wls, np.float32),
+                            np.asarray(values, np.float32)))
+        return len(self.curves) - 1
+
+    def add_stex_curve(self, curve_id: int, scale: float = 1.0) -> int:
+        v = np.zeros(self.s, np.float32)
+        v[0] = scale
+        self.stex.append(_STex(STexKind.CURVE, v, np.zeros(self.s, np.float32),
+                               curve_id=curve_id))
+        return len(self.stex) - 1
+
+    def add_stex_d65(self, scale: float = 1.0) -> int:
+        from ..spectrum.spectral import _raw
+
+        d = _raw("cie.npz")
+        wls = np.linspace(300.0, 830.0, d["d65"].shape[0])
+        return self.add_stex_curve(self.add_curve(wls, d["d65"]), scale)
+
+    def add_stex_ior(self, name: str, component: int = 0,
+                     scale: float = 1.0) -> int:
+        """Measured eta (component 0) or k (component 1) curve."""
+        from ..spectrum.spectral import ior_spectrum
+
+        lambdas, etas, ks = ior_spectrum(name)
+        vals = etas if component == 0 else ks
+        return self.add_stex_curve(self.add_curve(lambdas, vals), scale)
+
+    def add_ftex_const(self, value: float) -> int:
+        self.ftex.append(_FTex(FTexKind.CONST, float(value)))
+        return len(self.ftex) - 1
+
+    # -- materials ----------------------------------------------------------
+    def _add_material(self, lobes: list, emit_stex: int = -1) -> int:
+        if len(lobes) > MAX_LOBES:
+            raise ValueError(f"a material holds at most {MAX_LOBES} lobes")
+        self.materials.append(_Material(lobes=lobes, emit_stex=emit_stex))
+        return len(self.materials) - 1
+
+    def add_matte(self, reflectance_stex: int) -> int:
+        return self._add_material(
+            [_Lobe(LobeKind.LAMBERT, (reflectance_stex, -1, -1))])
+
+    def add_metal(self, coeff_stex: int, eta_stex: int, k_stex: int) -> int:
+        return self._add_material(
+            [_Lobe(LobeKind.SPECULAR_REFLECTION, (coeff_stex, eta_stex, k_stex))])
+
+    def add_glass(self, coeff_stex: int, eta_ext_stex: int,
+                  eta_int_stex: int) -> int:
+        return self._add_material(
+            [_Lobe(LobeKind.SPECULAR_SCATTERING,
+                   (coeff_stex, eta_ext_stex, eta_int_stex))])
+
+    def add_summed(self, mat0: int, mat1: int) -> int:
+        m0 = self.materials[mat0]
+        m1 = self.materials[mat1]
+        emit = max(m0.emit_stex, m1.emit_stex)
+        return self._add_material(list(m0.lobes) + list(m1.lobes),
+                                  emit_stex=emit)
+
+    def add_emitter(self, scatter_mat: int, emit_stex: int) -> int:
+        """Scattering material + emitter property."""
+        m = self.materials[scatter_mat]
+        return self._add_material(list(m.lobes), emit_stex=emit_stex)
+
+    # -- geometry -----------------------------------------------------------
+    def add_mesh(self, positions, normals, tangents, uvs, tri_vidx, mat_id,
+                 transform: Optional[np.ndarray] = None) -> None:
+        """Append a triangle mesh; bakes `transform` (4x4) into the vertices."""
+        positions = np.asarray(positions, np.float32).reshape(-1, 3)
+        normals = np.asarray(normals, np.float32).reshape(-1, 3)
+        tangents = np.asarray(tangents, np.float32).reshape(-1, 3)
+        uvs = np.asarray(uvs, np.float32).reshape(-1, 2)
+        tri_vidx = np.asarray(tri_vidx, np.int32).reshape(-1, 3)
+        if transform is not None:
+            m = np.asarray(transform, np.float32)
+            positions = positions @ m[:3, :3].T + m[:3, 3]
+            inv = np.linalg.inv(m[:3, :3])
+            normals = normals @ inv
+            norms = np.linalg.norm(normals, axis=-1, keepdims=True)
+            normals = normals / np.maximum(norms, 1e-20)
+            tangents = tangents @ m[:3, :3].T
+            tnorms = np.linalg.norm(tangents, axis=-1, keepdims=True)
+            tangents = tangents / np.maximum(tnorms, 1e-20)
+        n_tris = tri_vidx.shape[0]
+        mat = np.broadcast_to(np.asarray(mat_id, np.int32), (n_tris,))
+        self.positions.append(positions)
+        self.normals.append(normals)
+        self.tangents.append(tangents)
+        self.uvs.append(uvs)
+        self.tri_vidx.append(tri_vidx + self._nverts)
+        self.tri_mat.append(mat.copy())
+        self.tri_alpha.append(np.full((n_tris,), -1, np.int32))
+        self.tri_ntex.append(np.full((n_tris,), -1, np.int32))
+        self._nverts += positions.shape[0]
+
+    # -- camera -------------------------------------------------------------
+    def set_camera_perspective(self, to_world, aspect: float, fovy: float,
+                               lens_radius: float = 0.0, img_dist: float = 1.0,
+                               obj_dist: float = 1.0) -> None:
+        f = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+        self.camera = Camera(
+            kind=CameraKind.PERSPECTIVE,
+            to_world=_t(to_world, np.float32),
+            aspect=f(aspect), fovy=f(fovy), lens_radius=f(lens_radius),
+            img_dist=f(img_dist), obj_dist=f(obj_dist),
+            phi_angle=f(2 * np.pi), theta_angle=f(np.pi),
+        )
+
+    # -- build --------------------------------------------------------------
+    def build(self, use_bvh: bool = False) -> FlatScene:
+        if use_bvh:
+            raise NotImplementedError(
+                "SBVH treelet chunking (use_bvh=True) is not ported yet")
+        from ..accel.intersect import build_tri_table
+        from ..accel.traverse import build_pallas_tris, build_super_boxes
+        from ..spectrum.spectral import WL_HI, WL_LO, upsample_tabulate_host
+
+        s = self.s
+        if self.camera is None:
+            self.set_camera_perspective(np.eye(4, dtype=np.float32), 1.0, 0.52)
+        if not self.positions:
+            raise ValueError("scene has no geometry")
+
+        positions = np.concatenate(self.positions)
+        normals = np.concatenate(self.normals)
+        tangents = np.concatenate(self.tangents)
+        uvs = np.concatenate(self.uvs)
+        tri_vidx = np.concatenate(self.tri_vidx)
+        tri_mat = np.concatenate(self.tri_mat)
+        tri_alpha = np.concatenate(self.tri_alpha)
+        tri_ntex = np.concatenate(self.tri_ntex)
+        n_static = tri_vidx.shape[0]
+
+        geom = Geometry(
+            positions=_t(positions), normals=_t(normals),
+            tangents=_t(tangents), uvs=_t(uvs), tri_vidx=_t(tri_vidx),
+            tri_mat=_t(tri_mat), tri_alpha=_t(tri_alpha),
+            tri_ntex=_t(tri_ntex),
+            tri_table=_t(build_tri_table(positions, normals, tangents, uvs,
+                                         tri_vidx, tri_mat, tri_alpha,
+                                         tri_ntex)),
+        )
+
+        # Material SoA, as wide as the scene's largest lobe count.
+        m = len(self.materials)
+        l_max = max(max((len(mat.lobes) for mat in self.materials), default=1), 1)
+        lobe_kind = np.zeros((m, l_max), np.int32)
+        lobe_stex = np.full((m, l_max, 3), -1, np.int32)
+        lobe_ftex = np.full((m, l_max, 2), -1, np.int32)
+        lobe_wtex = np.full((m, l_max), -1, np.int32)
+        emit_stex = np.full((m,), -1, np.int32)
+        for i, mat in enumerate(self.materials):
+            for j, lb in enumerate(mat.lobes):
+                lobe_kind[i, j] = lb.kind
+                lobe_stex[i, j] = lb.stex
+                lobe_ftex[i, j] = lb.ftex
+                lobe_wtex[i, j] = lb.wtex
+            emit_stex[i] = mat.emit_stex
+        materials = Materials(lobe_kind=_t(lobe_kind), lobe_stex=_t(lobe_stex),
+                              lobe_ftex=_t(lobe_ftex), lobe_wtex=_t(lobe_wtex),
+                              emit_stex=_t(emit_stex))
+        lobe_kinds_present = tuple(sorted(
+            int(k) for k in np.unique(lobe_kind) if k != int(LobeKind.NONE)))
+
+        stexs = self.stex or [_STex(STexKind.CONST, np.zeros(s, np.float32),
+                                    np.zeros(s, np.float32))]
+        ftexs = self.ftex or [_FTex(FTexKind.CONST)]
+        if self.spectral:
+            # Pre-tabulate constant spectra into per-nm curves (exact: the
+            # Meng-Simon basis is piecewise linear with 5 nm knots), so the
+            # render never evaluates the upsampling grid.
+            grid = np.linspace(WL_LO, WL_HI, int(round(WL_HI - WL_LO)) + 1)
+            for st in stexs:
+                if st.kind == STexKind.CONST:
+                    vals = upsample_tabulate_host(
+                        float(st.value[0]), float(st.value[1]),
+                        float(st.value[2]), grid)
+                    st.kind = STexKind.CURVE
+                    st.curve_id = self.add_curve(grid, vals)
+                    st.value = np.zeros_like(st.value)
+                    st.value[0] = 1.0
+
+        if self.curves:
+            # Regular per-nm resampling over [WL_LO, WL_HI]: linear inside
+            # each curve's native domain, zero outside it.
+            grid_n = int(round(WL_HI - WL_LO)) + 1
+            grid = np.linspace(WL_LO, WL_HI, grid_n)
+            curves_wl = np.zeros((len(self.curves), 2), np.float32)
+            curves_v = np.zeros((len(self.curves), grid_n), np.float32)
+            for i, (wl, v) in enumerate(self.curves):
+                curves_wl[i] = (wl[0], wl[-1])
+                vals = np.interp(grid, wl, v)
+                vals[(grid < wl[0]) | (grid > wl[-1])] = 0.0
+                curves_v[i] = vals
+        else:
+            curves_wl = np.zeros((0, 2), np.float32)
+            curves_v = np.zeros((0, 1), np.float32)
+        stex = SpectrumTextures(
+            kind=_t([t.kind for t in stexs], np.int32),
+            value=_t(np.stack([t.value for t in stexs])),
+            value2=_t(np.stack([t.value2 for t in stexs])),
+            image_id=_t([t.image_id for t in stexs], np.int32),
+            map_scale=_t([t.map_scale for t in stexs], np.float32),
+            map_offset=_t([t.map_offset for t in stexs], np.float32),
+            images=torch.zeros((0, 1, 1, 4), dtype=torch.float32),
+            image_hw=torch.zeros((0, 2), dtype=torch.int32),
+            curve_id=_t([t.curve_id for t in stexs], np.int32),
+            curves_wl=_t(curves_wl), curves_v=_t(curves_v),
+            spectral=self.spectral,
+            has_checker=False, has_voronoi=False,
+            has_curve=any(t.kind == STexKind.CURVE for t in stexs),
+            has_const=any(t.kind == STexKind.CONST for t in stexs),
+        )
+        ftex = FloatTextures(
+            kind=_t([t.kind for t in ftexs], np.int32),
+            value=_t([t.value for t in ftexs], np.float32),
+            value2=_t([t.value2 for t in ftexs], np.float32),
+            image_id=_t([t.image_id for t in ftexs], np.int32),
+            map_scale=_t([t.map_scale for t in ftexs], np.float32),
+            map_offset=_t([t.map_offset for t in ftexs], np.float32),
+        )
+
+        # Every emissive triangle is one light of importance 1.
+        emissive = emit_stex[tri_mat] >= 0
+        light_tris = np.nonzero(emissive)[0].astype(np.int32)
+        n_area = len(light_tris)
+        if n_area == 0:
+            light_tris = np.zeros((1,), np.int32)
+        lights = Lights(
+            tri_idx=_t(light_tris),
+            dist=build_discrete_1d(torch.ones(max(n_area, 1))),
+            env_prob=torch.tensor(0.0, dtype=torch.float32),
+        )
+        env = EnvLight(stex=torch.tensor(-1, dtype=torch.int32),
+                       dist=build_continuous_2d(torch.ones((4, 8))),
+                       scale=torch.tensor(1.0, dtype=torch.float32))
+
+        # World bounding sphere of the static geometry.
+        verts = positions[tri_vidx.reshape(-1)]
+        verts = verts[np.abs(verts).max(axis=1) < 1e29]
+        lo, hi = verts.min(axis=0), verts.max(axis=0)
+        center = 0.5 * (lo + hi)
+        radius = float(np.linalg.norm(hi - center)) + 1e-3
+
+        pallas_tris = build_pallas_tris(geom)
+        ntex_table = NormalTextures(
+            kind=_t([0], np.int32), image_id=_t([-1], np.int32),
+            step_width=_t([1.0], np.float32), reverse=_t([0.0], np.float32),
+            map_scale=_t([(1.0, 1.0)], np.float32),
+            map_offset=_t([(0.0, 0.0)], np.float32))
+        return FlatScene(
+            geometry=geom, materials=materials, stex=stex, ftex=ftex,
+            lights=lights, env=env, camera=self.camera,
+            pallas_tris=pallas_tris, ntex=ntex_table, n_static=n_static,
+            lobe_kinds_present=lobe_kinds_present,
+            has_env=False, has_normal_map=False, has_alpha=False,
+            world_center=_t(center),
+            world_radius=torch.tensor(radius, dtype=torch.float32),
+            super_boxes_blob=np.asarray(
+                build_super_boxes(pallas_tris.boxes.numpy()),
+                np.float32).tobytes(),
+        )

@@ -1,0 +1,132 @@
+"""Built-in test scenes (counterpart of slr_tpu/scene/presets.py).
+
+`cornell_box_spheres` mirrors TestScenes/Cornell_Box_Spheres.txt: walls, an
+area light, one metal and one glass sphere tessellated to triangles.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..core import math3d as m3
+from ..core.device import resolve_device
+from .build import SceneBuilder
+from .types import FlatScene
+
+
+def _quad(p00, p10, p11, p01, n, t):
+    """4 vertices + 2 triangles with constant normal/tangent."""
+    pos = np.array([p00, p10, p11, p01], np.float32)
+    nrm = np.tile(np.asarray(n, np.float32), (4, 1))
+    tan = np.tile(np.asarray(t, np.float32), (4, 1))
+    uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    tris = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    return pos, nrm, tan, uv, tris
+
+
+def uv_sphere(center, radius, n_theta: int = 32, n_phi: int = 64):
+    """Tessellated UV sphere with exact normals/tangents."""
+    cz = np.asarray(center, np.float32)
+    thetas = np.linspace(0.0, np.pi, n_theta + 1)
+    phis = np.linspace(0.0, 2 * np.pi, n_phi + 1)
+    tt, pp = np.meshgrid(thetas, phis, indexing="ij")
+    x = np.sin(tt) * np.cos(pp)
+    y = np.cos(tt)
+    z = np.sin(tt) * np.sin(pp)
+    normals = np.stack([x, y, z], axis=-1).reshape(-1, 3)
+    pos = cz + radius * normals
+    tangent = np.stack([-np.sin(pp), np.zeros_like(pp), np.cos(pp)],
+                       axis=-1).reshape(-1, 3)
+    bad = np.abs(normals[:, 1]) > 0.999   # poles: any orthogonal tangent
+    tangent[bad] = (1.0, 0.0, 0.0)
+    uv = np.stack([pp / (2 * np.pi), tt / np.pi], axis=-1).reshape(-1, 2)
+    idx = np.arange((n_theta + 1) * (n_phi + 1)).reshape(n_theta + 1, n_phi + 1)
+    tris = []
+    for i in range(n_theta):
+        for j in range(n_phi):
+            a, b, c, d = idx[i, j], idx[i + 1, j], idx[i + 1, j + 1], idx[i, j + 1]
+            # Winding so cross(e01, e02) matches the outward normals.
+            if i > 0:
+                tris.append([a, d, b])
+            if i < n_theta - 1:
+                tris.append([b, d, c])
+    return (pos.astype(np.float32), normals.astype(np.float32),
+            tangent.astype(np.float32), uv.astype(np.float32),
+            np.asarray(tris, np.int32))
+
+
+def cornell_box_spheres(light_scale: float = 30.0, sphere_res: int = 24,
+                        metal: bool = True, glass: bool = True,
+                        use_bvh: bool = False, spectral: bool = False,
+                        device=None) -> FlatScene:
+    """TestScenes/Cornell_Box_Spheres.txt as a FlatScene on `device`
+    (default: the CUDA device).
+
+    In spectral mode the materials match the scene file: a D65 emitter,
+    measured aluminium eta/k and Air/BK7 glass. In RGB mode the emitter is
+    an RGB white of `light_scale` and the IOR curves are RGB-averaged
+    constants. Chunk tables are Morton slices (`use_bvh=True`, the SBVH
+    treelet chunking, is not ported yet)."""
+    dev = resolve_device(device)
+    b = SceneBuilder(spectral=spectral)
+
+    red = b.add_matte(b.add_stex_const((0.75, 0.25, 0.25)))
+    blue = b.add_matte(b.add_stex_const((0.25, 0.25, 0.75)))
+    white = b.add_matte(b.add_stex_const((0.75, 0.75, 0.75)))
+    light_scatter = b.add_matte(b.add_stex_const((0.9, 0.9, 0.9)))
+    if spectral:
+        emit = b.add_stex_d65(scale=0.13 * light_scale)
+    else:
+        emit = b.add_stex_const((light_scale, light_scale, light_scale))
+    light_mat = b.add_emitter(light_scatter, emit)
+
+    quads = [
+        (_quad((-1.5, 0, 2.55), (-1.5, 0, -2.55), (-1.5, 2.5, -2.55),
+               (-1.5, 2.5, 2.55), (1, 0, 0), (0, 0, -1)), red),
+        (_quad((1.5, 0, -2.55), (1.5, 0, 2.55), (1.5, 2.5, 2.55),
+               (1.5, 2.5, -2.55), (-1, 0, 0), (0, 0, 1)), blue),
+        (_quad((-1.5, 0, 2.55), (1.5, 0, 2.55), (1.5, 0, -2.55),
+               (-1.5, 0, -2.55), (0, 1, 0), (1, 0, 0)), white),
+        (_quad((-1.5, 0, -2.55), (1.5, 0, -2.55), (1.5, 2.5, -2.55),
+               (-1.5, 2.5, -2.55), (0, 0, 1), (1, 0, 0)), white),
+        (_quad((-1.5, 2.5, -2.55), (1.5, 2.5, -2.55), (1.5, 2.5, 2.55),
+               (-1.5, 2.5, 2.55), (0, -1, 0), (1, 0, 0)), white),
+        (_quad((-0.5, 2.499, -0.5), (0.5, 2.499, -0.5), (0.5, 2.499, 0.5),
+               (-0.5, 2.499, 0.5), (0, -1, 0), (1, 0, 0)), light_mat),
+    ]
+    for (pos, nrm, tan, uv, tris), mat in quads:
+        b.add_mesh(pos, nrm, tan, uv, tris, mat)
+
+    if metal:
+        if spectral:
+            eta = b.add_stex_ior("Aluminium", 0)
+            k = b.add_stex_ior("Aluminium", 1)
+        else:
+            eta = b.add_stex_const((1.345, 0.965, 0.617))
+            k = b.add_stex_const((7.47, 6.40, 5.30))
+        coeff = b.add_stex_const((1.0, 1.0, 1.0))
+        metal_mat = b.add_metal(coeff, eta, k)
+        b.add_mesh(*uv_sphere((-0.7, 0.5, -1.05), 0.5, sphere_res,
+                              sphere_res * 2), metal_mat)
+
+    if glass:
+        coeff = b.add_stex_const((0.999, 0.999, 0.999))
+        if spectral:
+            eta_ext = b.add_stex_ior("Air", 0)
+            eta_int = b.add_stex_ior("Glass_BK7", 0)
+        else:
+            eta_ext = b.add_stex_const((1.00036, 1.00021, 1.00071))
+            eta_int = b.add_stex_const((1.51, 1.516, 1.526))
+        glass_mat = b.add_glass(coeff, eta_ext, eta_int)
+        b.add_mesh(*uv_sphere((0.7, 0.5, 0.0), 0.5, sphere_res,
+                              sphere_res * 2), glass_mat)
+
+    _finish_cornell_camera(b)
+    return b.build(use_bvh=use_bvh).to(dev)
+
+
+def _finish_cornell_camera(b: SceneBuilder) -> None:
+    to_world = (m3.mat_translate([0.0, 1.689714, 6.70284]).numpy()
+                @ m3.mat_rotate_y(np.pi).numpy()
+                @ m3.mat_rotate_x(0.0563936).numpy())
+    b.set_camera_perspective(to_world, aspect=4.0 / 3.0, fovy=0.4807705238,
+                             lens_radius=0.025, img_dist=1.0, obj_dist=6.3)
