@@ -20,7 +20,19 @@ caught:
    iteration, the device's busy share, the kernels' share of it).
 6. cross-check: the same scene at 64x48 on the card and on the CPU (plain
    versions), compared per pixel.
-7. prints {"kernels": [...]}, then, as the last line, the device line.
+7. grass kernels: on the instanced, animated grass field (4,096 blades of
+   26 triangles, a quarter of them swaying across the shutter) the
+   instance transform on its own and both traversal kernels against their
+   plain versions, on camera, bounce and shadow rays with random shutter
+   fractions; the kernels also count the (ray, instanced entry)
+   transforms, which enter the bound.
+8. grass main path: the grass field at 512x384, spp 4, depth 100; both
+   traversal counters must equal the iteration count, the kernels' own
+   count of the instance transforms they ran in that render must be above
+   zero for each, and some primary hits must lie on instanced blades. Then
+   its profile, and a smaller grass field at 64x48 on the card against
+   the CPU.
+9. prints {"kernels": [...]}, then, as the last line, the device line.
 """
 import json
 import os
@@ -36,16 +48,21 @@ from slr_tpu_torch.accel.intersect import RAY_EPSILON
 from slr_tpu_torch.camera.perspective import sample_camera_rays
 from slr_tpu_torch.core import cuda_build
 from slr_tpu_torch.render.film import develop
-from slr_tpu_torch.render.pt import _ray_sort_key
+from slr_tpu_torch.render.pt import _ray_sort_key, scene_intersect
 from slr_tpu_torch.render.wavefront import DEFAULT_LANE_CAP, render_wavefront
-from slr_tpu_torch.scene.presets import cornell_box_spheres
+from slr_tpu_torch.scene.presets import cornell_box_spheres, grass_field
 from slr_tpu_torch.spectrum.rgb import luminance
 
 WIDTH, HEIGHT, SPP, DEPTH, SEED = 1024, 768, 4, 100, 1
 CHECK_W, CHECK_H = 64, 48
 LANES = DEFAULT_LANE_CAP
 TIMING_RUNS = 25
+PLAIN_RUNS_GRASS = 5      # the plain versions walk ~100 entries a block there
 DEV = "cuda"
+# The instanced configuration: the RTC3-class grass field.
+GRASS = dict(n_side=64, blade_segments=13, animated_fraction=0.25)
+GRASS_W, GRASS_H = 512, 384
+GRASS_CHECK = dict(n_side=16, blade_segments=5, animated_fraction=0.25)
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
 PEAK_FP32 = 67e12
@@ -54,9 +71,17 @@ PEAK_BYTES = 3.35e12
 # 6-term side products (11 each), n.d (5), d0 - n.o (6), then the divide
 # (closest hit) or the two range terms and their product (any hit).
 OPS_PER_TEST = {"closest_hit": 33 + 5 + 6 + 1, "any_hit": 33 + 5 + 6 + 5}
+# fp32 operations of one instance transform (`xform_ray`), each sinf, rsqrtf
+# and divide counted as one: the slerp weights (1 divide, 1 - f, two sinf
+# with two multiplies each: 8), the quaternion (12), its norm (4 multiplies,
+# 3 adds, max, rsqrtf: 9) and scaling (4), T (9), 1/S (3 lerps and 3
+# divides: 12), two inverse rotations (33 each), o - T (3), the two 1/S
+# scalings (6) and the moment (9).
+OPS_PER_XFORM = 8 + 12 + 9 + 4 + 9 + 12 + 2 * 33 + 3 + 6 + 9
 SOURCE = "slr_tpu_torch/csrc/traverse.cu"
 REPLACES = {"closest_hit": "slr_tpu/accel/pallas_intersect.py:1127",
-            "any_hit": "slr_tpu/accel/pallas_intersect.py:1205"}
+            "any_hit": "slr_tpu/accel/pallas_intersect.py:1205",
+            "xform_rays": "slr_tpu/accel/pallas_intersect.py:748"}
 
 
 def log(*args):
@@ -99,11 +124,11 @@ def _cuda_tensor(a):
     return torch.as_tensor(np.asarray(a, np.float32), device=DEV)
 
 
-def camera_rays(scene, n, rs):
-    pix = rs.choice(WIDTH * HEIGHT, n, replace=False)
-    px = _cuda_tensor(pix % WIDTH + rs.rand(n))
-    py = _cuda_tensor(pix // WIDTH + rs.rand(n))
-    cam = sample_camera_rays(scene.camera, px, py, WIDTH, HEIGHT,
+def camera_rays(scene, n, rs, width=WIDTH, height=HEIGHT):
+    pix = rs.choice(width * height, n, replace=False)
+    px = _cuda_tensor(pix % width + rs.rand(n))
+    py = _cuda_tensor(pix // width + rs.rand(n))
+    cam = sample_camera_rays(scene.camera, px, py, width, height,
                              _cuda_tensor(rs.rand(n)), _cuda_tensor(rs.rand(n)))
     return cam.o, cam.d
 
@@ -133,11 +158,11 @@ def shadow_rays(n, rs):
             _cuda_tensor(dist * (1.0 - 1e-3)))
 
 
-def median_ms(fn) -> float:
+def median_ms(fn, runs=TIMING_RUNS) -> float:
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(TIMING_RUNS):
+    for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -148,71 +173,147 @@ def median_ms(fn) -> float:
     return statistics.median(times)
 
 
-def bound_ms(name, args, pt, outputs, tests) -> tuple[float, str]:
+def bound_ms(name, args, pt, outputs, tests, xforms) -> tuple[float, str]:
     """Least time for the same work: each input read once and each output
-    written once over the memory rate, or this run's ray-triangle tests
-    over the fp32 rate, whichever is larger."""
+    written once over the memory rate, or this run's ray-triangle tests and
+    instance transforms over the fp32 rate, whichever is larger. Of the 16
+    ray rows the kernels read 12: d, m, o, tmin, tmax and the shutter
+    fraction."""
     rays, wl, wtn, cnt = args
-    ins = (rays, wl, wtn, cnt, pt.boxes, pt.entry_chunk, pt.tri24)
-    nbytes = sum(t.numel() * t.element_size() for t in ins + tuple(outputs))
-    ops = int(tests.sum()) * OPS_PER_TEST[name]
+    ins = (wl, wtn, cnt, pt.boxes, pt.entry_chunk, pt.entry_inst,
+           pt.inst_trs, pt.tri24)
+    nbytes = (rays.numel() * rays.element_size() * 12 // tv.ROWS
+              + sum(t.numel() * t.element_size()
+                    for t in ins + tuple(outputs)))
+    ops = (int(tests.sum()) * OPS_PER_TEST[name]
+           + int(xforms.sum()) * OPS_PER_XFORM)
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def check_closest(label, pt, o, d, tmax, active):
+def entries_per_block(pt, wl, cnt) -> tuple[float, float]:
+    """Mean worklist entries per block, static and instanced apart."""
+    nb = cnt.shape[0]
+    e = wl.reshape(nb, -1).to(torch.int64)
+    listed = torch.arange(e.shape[1], device=e.device)[None, :] < cnt[:, None]
+    inst = (pt.entry_inst[e] >= 0) & listed
+    return (float((listed & ~inst).sum()) / nb, float(inst.sum()) / nb)
+
+
+def check_closest(label, pt, o, d, tmax, active, f=None):
+    """Static tables: the bit-for-bit gate of the first slice. Instanced
+    tables (`f` given): the tests/test_pallas.py criteria."""
     rays, wl, cnt, wtn, _ = tv.prepare_cast(pt, o, d, RAY_EPSILON, tmax,
-                                            active)
+                                            active, f=f)
     tests = torch.zeros(rays.shape[0], dtype=torch.int32, device=DEV)
-    t_k, i_k, inst_k = tv.closest_hit(rays, wl, wtn, cnt, pt, tests=tests)
-    t_p, i_p, _ = tv.closest_hit_plain(rays, wl, cnt, pt)
+    xforms = torch.zeros_like(tests)
+    t_k, i_k, inst_k = tv.closest_hit(rays, wl, wtn, cnt, pt, tests=tests,
+                                      xforms=xforms)
+    t_p, i_p, inst_p = tv.closest_hit_plain(rays, wl, cnt, pt)
     torch.cuda.synchronize()
-    # tests/test_pallas.py criteria: equal hit masks; the same triangle or
-    # t within 1e-4 on more than 99.5% of the rays hit.
+    # tests/test_pallas.py criteria: equal hit masks; the same (slot,
+    # instance) or t within 1e-4 on more than 99.5% of the rays hit.
     h_k, h_p = i_k >= 0, i_p >= 0
     n_mask = int((h_k != h_p).sum())
     both = h_k & h_p
-    same = (i_k == i_p) | ((t_k - t_p).abs()
-                           <= 1e-4 * torch.clamp(t_p.abs(), min=1.0))
+    same = ((i_k == i_p) & (inst_k == inst_p)) | (
+        (t_k - t_p).abs() <= 1e-4 * torch.clamp(t_p.abs(), min=1.0))
     share = float(same[both].float().mean()) if bool(both.any()) else 1.0
     err = float((t_k - t_p)[h_k == h_p].abs().max())
+    n_t = int((t_k != t_p).sum())
+    n_idx = int((i_k != i_p).sum())
+    n_inst = int((inst_k != inst_p).sum())
     ms = median_ms(lambda: tv.closest_hit(rays, wl, wtn, cnt, pt))
-    plain = median_ms(lambda: tv.closest_hit_plain(rays, wl, cnt, pt))
+    plain = median_ms(lambda: tv.closest_hit_plain(rays, wl, cnt, pt),
+                      TIMING_RUNS if f is None else PLAIN_RUNS_GRASS)
     bms, by = bound_ms("closest_hit", (rays, wl, wtn, cnt), pt,
-                       (t_k, i_k, inst_k), tests)
+                       (t_k, i_k, inst_k), tests, xforms)
+    e_st, e_in = entries_per_block(pt, wl, cnt)
     log(f"[kernel] closest_hit {label}: {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {bms:.4f} ms ({by}), tests {int(tests.sum())}, "
-        f"entries/block {float(cnt.float().mean()):.2f}, hit rays "
-        f"{int(h_p.sum())}, mask mismatches {n_mask}, same-or-close "
-        f"{share:.6f}, max |dt| {err:.3g}, idx differ "
-        f"{int((i_k != i_p).sum())}")
-    if n_mask or share <= 0.995 or not (inst_k == -1).all():
+        f"bound {bms:.4f} ms ({by}), tests {int(tests.sum())}, transforms "
+        f"{int(xforms.sum())}, entries/block {e_st:.2f} static + {e_in:.2f} "
+        f"instanced (most {int(cnt.max())}), hit rays {int(h_p.sum())} "
+        f"({int((inst_p >= 0).sum())} on instances), mask mismatches "
+        f"{n_mask}, same-or-close {share:.6f}, max |dt| {err:.3g}, rays "
+        f"whose t differs in any bit {n_t}, idx differ {n_idx}, inst differ "
+        f"{n_inst}")
+    bad = n_mask or share <= 0.995
+    if f is None:
+        bad = bad or not bool((inst_k == -1).all())
+    elif not bool((inst_p >= 0).any()) or not int(xforms.sum()):
+        raise AssertionError(f"no {label} ray reached an instanced entry")
+    if bad:
         raise AssertionError(f"closest_hit disagrees with its plain version "
                              f"on {label} rays")
     return dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                 max_abs_err=err)
 
 
-def check_any(label, pt, o, d, tmax, active):
+def check_any(label, pt, o, d, tmax, active, f=None):
     rays, wl, cnt, wtn, _ = tv.prepare_cast(pt, o, d, RAY_EPSILON, tmax,
-                                            active)
+                                            active, f=f)
     tests = torch.zeros(rays.shape[0], dtype=torch.int32, device=DEV)
-    occ_k = tv.any_hit(rays, wl, wtn, cnt, pt, tests=tests)
+    xforms = torch.zeros_like(tests)
+    occ_k = tv.any_hit(rays, wl, wtn, cnt, pt, tests=tests, xforms=xforms)
     occ_p = tv.any_hit_plain(rays, wl, cnt, pt)
     torch.cuda.synchronize()
     err = float((occ_k - occ_p).abs().max())
+    n_diff = int((occ_k != occ_p).sum())
     ms = median_ms(lambda: tv.any_hit(rays, wl, wtn, cnt, pt))
-    plain = median_ms(lambda: tv.any_hit_plain(rays, wl, cnt, pt))
-    bms, by = bound_ms("any_hit", (rays, wl, wtn, cnt), pt, (occ_k,), tests)
+    plain = median_ms(lambda: tv.any_hit_plain(rays, wl, cnt, pt),
+                      TIMING_RUNS if f is None else PLAIN_RUNS_GRASS)
+    bms, by = bound_ms("any_hit", (rays, wl, wtn, cnt), pt, (occ_k,), tests,
+                       xforms)
+    e_st, e_in = entries_per_block(pt, wl, cnt)
     log(f"[kernel] any_hit {label}: {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {bms:.4f} ms ({by}), tests {int(tests.sum())}, "
-        f"entries/block {float(cnt.float().mean()):.2f}, occluded "
-        f"{int(occ_p.sum())}, mismatches {int((occ_k != occ_p).sum())}")
-    if err != 0.0:
+        f"bound {bms:.4f} ms ({by}), tests {int(tests.sum())}, transforms "
+        f"{int(xforms.sum())}, entries/block {e_st:.2f} static + {e_in:.2f} "
+        f"instanced (most {int(cnt.max())}), occluded {int(occ_p.sum())}, "
+        f"mismatches {n_diff} of {occ_p.numel()}")
+    # Static tables: bit for bit. Instanced tables: the masks agree on more
+    # than 99.5% of the rays (tests/test_pallas.py).
+    if (err != 0.0) if f is None else (n_diff > 0.005 * occ_p.numel()):
         raise AssertionError(f"any_hit disagrees with its plain version on "
                              f"{label} rays")
     return dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                max_abs_err=err)
+
+
+def check_xform(pt, o, d, f, rs):
+    """The instance transform on its own, at the main path's shape: 49,152
+    packed rays in blocks of the grass table's width, one seeded instance
+    row per block. Tolerance: 1e-5 relative to max(1, |plain|) per value
+    (sinf / rsqrtf against torch.sin / torch.rsqrt)."""
+    rb = tv._auto_rb(pt)
+    zeros = torch.zeros(o.shape[0], device=DEV)
+    rays, nb = tv._pack_rays(o, d, zeros, zeros, rb, f)
+    rows = pt.inst_trs[torch.as_tensor(
+        rs.randint(0, pt.inst_trs.shape[0], nb), device=DEV)].contiguous()
+    out_k = tv.xform_rays(rays, rows)
+    out_p = tv.xform_rays_plain(rays, rows)
+    torch.cuda.synchronize()
+    diff = (out_k - out_p).abs()
+    err = float(diff.max())
+    n_bits = int((out_k != out_p).sum())
+    bad = int((diff > 1e-5 * torch.clamp(out_p.abs(), min=1.0)).sum())
+    ms = median_ms(lambda: tv.xform_rays(rays, rows))
+    plain = median_ms(lambda: tv.xform_rays_plain(rays, rows))
+    # Read: ray rows 0-8 (d, m, o) and 12 (f) of the 16, and the instance
+    # rows; written: the 9 local rows.
+    nbytes = (rays.numel() * rays.element_size() * 10 // tv.ROWS
+              + sum(t.numel() * t.element_size() for t in (rows, out_k)))
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = rays.shape[0] * rb * OPS_PER_XFORM / PEAK_FP32
+    log(f"[kernel] xform_rays: {nb} blocks of {rb}: {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {max(t_bytes, t_ops) * 1e3:.5f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}), max |err| "
+        f"{err:.3g}, values that differ in any bit {n_bits} of "
+        f"{out_p.numel()}, beyond tolerance {bad}")
+    if bad or not bool(torch.isfinite(out_k).all()):
+        raise AssertionError("xform_rays disagrees with its plain version")
+    return dict(ms=ms, plain_ms=plain, bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
                 max_abs_err=err)
 
 
@@ -224,8 +325,9 @@ def main_path_order(scene, active, *rays):
     return [x[order] for x in rays + (active,)]
 
 
-def phase_kernels(scene) -> dict:
-    pt = scene.pallas_tris
+def cornell_ray_sets(scene) -> dict:
+    """The Cornell phase's four casts, as (kernel, o, d, tmax, active): the
+    main path's lane count, seeded, in the main path's sorted order."""
     rs = np.random.RandomState(0)
     active = torch.as_tensor(rs.rand(LANES) < 0.8, device=DEV)
     everyone = torch.ones(LANES, dtype=torch.bool, device=DEV)
@@ -234,19 +336,89 @@ def phase_kernels(scene) -> dict:
     o_b, d_b, act_b = main_path_order(scene, active, *box_rays(LANES, rs))
     o_s, d_s, tmax_s, act_s = main_path_order(scene, active,
                                               *shadow_rays(LANES, rs))
+    return {"closest camera": ("closest_hit", o_c, d_c, float("inf"), None),
+            "closest in-box": ("closest_hit", o_b, d_b, float("inf"), act_b),
+            "any shadow": ("any_hit", o_s, d_s, tmax_s, act_s),
+            "any in-box": ("any_hit", o_b, d_b, 0.7, None)}
+
+
+def phase_kernels(scene) -> dict:
+    pt = scene.pallas_tris
+    sets = cornell_ray_sets(scene)
     log(f"[kernel] tables: {pt.n_chunks} chunks of {pt.chunk}, "
         f"{scene.geometry.num_tris} triangles, {LANES} rays, "
         f"{-(-LANES // tv._auto_rb(pt))} blocks of {tv._auto_rb(pt)}")
-    closest = [check_closest("camera", pt, o_c, d_c, float("inf"), None),
-               check_closest("in-box", pt, o_b, d_b, float("inf"), act_b)]
-    anyhit = [check_any("shadow", pt, o_s, d_s, tmax_s, act_s),
-              check_any("in-box", pt, o_b, d_b, 0.7, None)]
+    closest = [check_closest("camera", pt, *sets["closest camera"][1:]),
+               check_closest("in-box", pt, *sets["closest in-box"][1:])]
+    anyhit = [check_any("shadow", pt, *sets["any shadow"][1:]),
+              check_any("in-box", pt, *sets["any in-box"][1:])]
     # The main path's casts are mostly bounce and shadow rays: the in-box
     # closest-hit and the shadow any-hit sets give the reported times.
     out = {"closest_hit": dict(closest[1]), "any_hit": dict(anyhit[0])}
     out["closest_hit"]["max_abs_err"] = max(c["max_abs_err"]
                                             for c in closest)
     out["any_hit"]["max_abs_err"] = max(a["max_abs_err"] for a in anyhit)
+    return out
+
+
+def field_points(n, rs, half):
+    """Points just above the grass field, among the blades."""
+    return np.stack([rs.uniform(-half, half, n), rs.uniform(0.01, 0.4, n),
+                     rs.uniform(-half, half, n)], axis=1).astype(np.float32)
+
+
+def phase_grass_kernels(scene) -> dict:
+    """Phase 7: the instanced table. Camera rays, bounce rays from points
+    among the blades and shadow rays toward the sun quad, each with a
+    seeded shutter fraction, in the main path's sorted order."""
+    pt = scene.pallas_tris
+    rs = np.random.RandomState(1)
+    half = GRASS["n_side"] * 0.05
+    active = torch.as_tensor(rs.rand(LANES) < 0.8, device=DEV)
+    everyone = torch.ones(LANES, dtype=torch.bool, device=DEV)
+
+    def shutter():
+        return _cuda_tensor(rs.rand(LANES))
+
+    o_c, d_c, f_c, _ = main_path_order(
+        scene, everyone, *camera_rays(scene, LANES, rs, GRASS_W, GRASS_H),
+        shutter())
+    dirs = rs.normal(size=(LANES, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    o_b, d_b, f_b, act_b = main_path_order(
+        scene, active, _cuda_tensor(field_points(LANES, rs, half)),
+        _cuda_tensor(dirs), shutter())
+    src = field_points(LANES, rs, half)
+    tgt = np.stack([rs.uniform(-2, 2, LANES), np.full(LANES, 8.0),
+                    rs.uniform(-2, 2, LANES)], axis=1).astype(np.float32)
+    dist = np.linalg.norm(tgt - src, axis=1)
+    o_s, d_s, tmax_s, f_s, act_s = main_path_order(
+        scene, active, _cuda_tensor(src),
+        _cuda_tensor((tgt - src) / dist[:, None]),
+        _cuda_tensor(dist * (1.0 - 1e-3)), shutter())
+    n_inst = int((pt.entry_inst >= 0).sum())
+    log(f"[grass] tables: {pt.n_chunks} chunks of {pt.chunk}, "
+        f"{pt.n_entries - n_inst} static + {n_inst} instanced entries, "
+        f"{scene.instances.num} instances, {scene.geometry.num_tris} "
+        f"triangles ({scene.n_static} static), {LANES} rays, "
+        f"{-(-LANES // tv._auto_rb(pt))} blocks of {tv._auto_rb(pt)}")
+    out = {"xform_rays": check_xform(pt, o_c, d_c, f_c, rs)}
+    closest = [check_closest("grass camera", pt, o_c, d_c, float("inf"),
+                             None, f_c),
+               check_closest("grass bounce", pt, o_b, d_b, float("inf"),
+                             act_b, f_b)]
+    anyhit = [check_any("grass shadow", pt, o_s, d_s, tmax_s, act_s, f_s),
+              check_any("grass bounce", pt, o_b, d_b, 0.3, None, f_b)]
+    out["closest_hit"] = dict(closest[1])
+    out["any_hit"] = dict(anyhit[0])
+    out["closest_hit"]["max_abs_err"] = max(c["max_abs_err"] for c in closest)
+    out["any_hit"]["max_abs_err"] = max(x["max_abs_err"] for x in anyhit)
+    # The worklist build's cost per cast, at the main path's lane count.
+    wl_ms = median_ms(lambda: tv.prepare_cast(
+        pt, o_b, d_b, RAY_EPSILON, float("inf"), act_b, f=f_b), 10)
+    log(f"[grass] prepare_cast (ranges, packing, per-block worklists over "
+        f"{pt.n_entries} entry boxes): {wl_ms:.3f} ms per cast")
+    out["prepare_cast_ms"] = wl_ms
     return out
 
 
@@ -295,14 +467,15 @@ def phase_main_path(scene) -> dict:
     if not (mean > 0.0 and neg < 0.05):
         raise AssertionError(f"implausible image: mean {mean}, negative "
                              f"share {neg}")
-    if launches != {"closest_hit": iters, "any_hit": iters}:
+    if launches != {"closest_hit": iters, "any_hit": iters, "xform_rays": 0}:
         raise AssertionError(f"launch counts {launches} != {iters} "
-                             f"iterations for each kernel")
+                             f"iterations for each traversal kernel (and no "
+                             f"launch of the transform on its own)")
     return dict(seconds=secs, ksamples_per_s=ksps, mrays_per_s=mrays,
                 iterations=iters, lanes=lanes, mean=mean, launches=launches)
 
 
-def phase_profile(scene) -> None:
+def phase_profile(scene, tag="profile") -> None:
     """Where the main path's time goes: one 256x192 (= 49,152 lanes) spp 1
     render under torch.profiler. Reports launches per iteration, the
     device's busy share and the traversal kernels' share of device time."""
@@ -329,21 +502,21 @@ def phase_profile(scene) -> None:
         by_name[e.name] = (n + 1, us + e.self_device_time_total)
     syncs = sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize")
                 for e in prof.events())
-    log(f"[profile] 256x192 spp 1: {iters} iterations, {wall:.3f} s "
+    log(f"[{tag}] 256x192 spp 1: {iters} iterations, {wall:.3f} s "
         f"({wall / iters * 1e3:.2f} ms per iteration) unprofiled, "
         f"{pwall:.3f} s profiled; {len(dev) / iters:.0f} device ops and "
         f"{syncs / iters:.1f} host syncs per iteration; device busy "
         f"{busy:.3f} s = {busy / wall:.3f} of the unprofiled wall time")
     for kname in ("closest_hit_kernel", "any_hit_kernel"):
         n, us = next(v for k, v in by_name.items() if kname in k)
-        log(f"[profile] {kname}: {n} launches, {us / n / 1e3:.4f} ms each, "
+        log(f"[{tag}] {kname}: {n} launches, {us / n / 1e3:.4f} ms each, "
             f"{us / 1e6 / busy:.3f} of device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     for name, (n, us) in top:
-        log(f"[profile]   {us / 1e3:9.3f} ms in {n:6d} launches: {name[:90]}")
+        log(f"[{tag}]   {us / 1e3:9.3f} ms in {n:6d} launches: {name[:90]}")
 
 
-def phase_cross_check(scene, main_mean: float) -> None:
+def phase_cross_check(scene, main_mean: float | None, tag="check") -> None:
     kw = dict(spp=SPP, seed=SEED, max_depth=DEPTH, return_iters=True)
     t0 = time.perf_counter()
     gpu, it_gpu = render_wavefront(scene, CHECK_W, CHECK_H, **kw)
@@ -360,19 +533,93 @@ def phase_cross_check(scene, main_mean: float) -> None:
     # within rtol 1e-3 and the image means within 1%.
     close = (np.abs(gpu - cpu) <= 1e-3 * np.abs(cpu) + 1e-6).all(-1).mean()
     rel = abs(gpu.mean() / cpu.mean() - 1.0)
-    log(f"[check] {CHECK_W}x{CHECK_H} spp {SPP} depth {DEPTH}: card "
+    n_far = int((~(np.abs(gpu - cpu) <= 1e-3 * np.abs(cpu) + 1e-6)
+                   .all(-1)).sum())
+    log(f"[{tag}] {CHECK_W}x{CHECK_H} spp {SPP} depth {DEPTH}: card "
         f"{t1 - t0:.2f} s ({it_gpu} iterations), CPU {t2 - t1:.2f} s "
-        f"({it_cpu} iterations); pixels within rtol 1e-3 {close:.6f}, "
-        f"means {gpu.mean():.6f} / {cpu.mean():.6f} (rel {rel:.2e}); "
-        f"full-size mean {main_mean:.6f}")
+        f"({it_cpu} iterations); pixels within rtol 1e-3 {close:.6f} "
+        f"({n_far} beyond), means {gpu.mean():.6f} / {cpu.mean():.6f} (rel "
+        f"{rel:.2e})"
+        + ("" if main_mean is None else f"; full-size mean {main_mean:.6f}"))
     if close < 0.98 or rel >= 0.01 or abs(it_gpu - it_cpu) > 2:
         raise AssertionError("the card's render disagrees with the CPU's")
+    if main_mean is None:
+        return
     # Both sizes estimate the same image plane, but caustic paths through
     # the glass sphere make the 4-spp mean of a small image noisy: a loose
     # plausibility bound.
     if not abs(main_mean / cpu.mean() - 1.0) < 0.35:
         raise AssertionError("the full-size image mean is implausible next "
                              "to the small render's")
+
+
+def phase_grass_main_path(scene) -> dict:
+    """Phase 8: the instanced configuration through `render_wavefront`."""
+    kw = dict(seed=SEED, max_depth=DEPTH)
+    render_wavefront(scene, 256, 192, spp=1, **kw)       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tv.reset_launches()
+    # The casts' kernels count, on the device, the tests and the instance
+    # transforms their rays need: the transform launches no kernel of its
+    # own on this path, so this is what shows that it ran.
+    tv.track_work(DEV)
+    t0 = time.perf_counter()
+    img, iters = render_wavefront(scene, GRASS_W, GRASS_H, spp=SPP,
+                                  return_iters=True, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(tv.LAUNCHES)
+    work = dict(zip(("closest_hit_tests", "closest_hit_transforms",
+                     "any_hit_tests", "any_hit_transforms"),
+                    tv.WORK.tolist()))
+    tv.track_work(None)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lanes = min(GRASS_W * GRASS_H, LANES)
+    ksps = GRASS_W * GRASS_H * SPP / secs / 1e3
+    mrays = 2 * lanes * iters / secs / 1e6
+    lit = float((img.sum(-1) > 0).float().mean())
+    # Primary visibility: one ray through each pixel centre at a seeded
+    # shutter fraction (outside the counted window).
+    n_pix = GRASS_W * GRASS_H
+    pix = torch.arange(n_pix, device=DEV)
+    half_ = torch.full((n_pix,), 0.5, device=DEV)
+    cam = sample_camera_rays(scene.camera, (pix % GRASS_W) + half_,
+                             (pix // GRASS_W) + half_, GRASS_W, GRASS_H,
+                             half_, half_)
+    f = _cuda_tensor(np.random.RandomState(2).rand(n_pix))
+    shares = []
+    for s0 in range(0, n_pix, LANES):
+        hit = scene_intersect(scene, cam.o[s0:s0 + LANES],
+                              cam.d[s0:s0 + LANES], f=f[s0:s0 + LANES])
+        shares.append((hit.inst >= 0).float())
+    on_inst = float(torch.cat(shares).mean())
+    log(f"[grass main] {GRASS_W}x{GRASS_H} spp {SPP} depth {DEPTH} grass "
+        f"field: {secs:.3f} s, {ksps:.1f} ksamples/s, {mrays:.2f} Mrays/s, "
+        f"{iters} iterations ({secs / iters * 1e3:.2f} ms each), {lanes} "
+        f"lanes, launches {launches}, work the kernels counted {work}, "
+        f"image mean {float(img.mean()):.5f}, "
+        f"non-black pixels {lit:.4f}, primary hits on instanced blades "
+        f"{on_inst:.4f} of pixels, peak memory {peak:.2f} GiB")
+    log(ascii_view(img))
+    if tuple(img.shape) != (GRASS_H, GRASS_W, 3) or not bool(
+            torch.isfinite(img).all()):
+        raise AssertionError("grass image is not finite or has the wrong "
+                             "shape")
+    if not lit > 0.10:
+        raise AssertionError(f"only {lit} of the grass pixels are non-black")
+    if launches != {"closest_hit": iters, "any_hit": iters, "xform_rays": 0}:
+        raise AssertionError(f"launch counts {launches}: expected {iters} "
+                             f"for each traversal kernel (and no launch of "
+                             f"the transform on its own)")
+    if not (work["closest_hit_transforms"] > 0
+            and work["any_hit_transforms"] > 0):
+        raise AssertionError(f"a traversal kernel ran no instance transform "
+                             f"in the grass render: {work}")
+    if not on_inst > 0.0:
+        raise AssertionError("no primary hit lies on an instanced blade")
+    return dict(seconds=secs, iterations=iters, launches=launches,
+                peak_gib=peak, work=work)
 
 
 def main() -> None:
@@ -388,12 +635,46 @@ def main() -> None:
     main_path = phase_main_path(scene)
     phase_profile(scene)
     phase_cross_check(scene, main_path["mean"])
+
+    t0 = time.perf_counter()
+    grass = grass_field(**GRASS)
+    log(f"[scene] grass field built on {grass.device} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    g_timings = phase_grass_kernels(grass)
+    g_main = phase_grass_main_path(grass)
+    wl_share = (2 * g_timings["prepare_cast_ms"] * g_main["iterations"] / 1e3
+                / g_main["seconds"])
+    log(f"[grass main] worklist builds: 2 x "
+        f"{g_timings['prepare_cast_ms']:.3f} ms = {wl_share:.3f} of the "
+        f"render's wall time")
+    phase_profile(grass, "grass profile")
+    phase_cross_check(grass_field(**GRASS_CHECK), None, "grass check")
+
     kernels = []
     for name in ("closest_hit", "any_hit"):
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE,
             replaces=REPLACES[name], launches=main_path["launches"][name],
-            library_ms=None, **timings[name]))
+            library_ms=None, **timings[name],
+            grass=dict(launches=g_main["launches"][name],
+                       tests=g_main["work"][name + "_tests"],
+                       transforms=g_main["work"][name + "_transforms"],
+                       **g_timings[name])))
+    # The instance transform: on the main paths it runs as a device function
+    # of the two kernels above, whose counted transforms show it; launched
+    # on its own (never by a cast) it is held against its plain version.
+    kernels.append(dict(
+        name="xform_rays", route="cuda", source=SOURCE,
+        replaces=REPLACES["xform_rays"],
+        launches=g_main["launches"]["xform_rays"],
+        runs_inside=["closest_hit", "any_hit"],
+        transforms_in_grass_render=(
+            g_main["work"]["closest_hit_transforms"]
+            + g_main["work"]["any_hit_transforms"]),
+        library_ms=None, **g_timings["xform_rays"]))
+    if not all(k["launches"] > 0 and k["grass"]["launches"] > 0
+               for k in kernels[:2]):
+        raise AssertionError("a kernel of the main paths was never launched")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ written by hand in CUDA C++ for Hopper (`csrc/`). The layout mirrors
 each function's counterpart is found under the same path.
 
 Entry points (`scene.presets.cornell_box_spheres`,
-`render.wavefront.render_wavefront`, `render.film.develop`) run on the CUDA
+`scene.presets.grass_field`, `render.wavefront.render_wavefront`,
+`render.film.develop`) run on the CUDA
 device unless the caller passes `device="cpu"`; without a CUDA device they
 raise instead of falling back.
 """

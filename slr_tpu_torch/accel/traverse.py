@@ -13,6 +13,14 @@ hand-written kernels of `csrc/traverse.cu`; on CPU tensors they run their
 plain PyTorch versions (`closest_hit_plain` / `any_hit_plain`), which walk
 the same worklists with the same arithmetic in the same order. A CUDA
 tensor never takes the plain path.
+
+Instanced scenes ride the same tables: after the static chunks come the
+local-space chunks of each BLAS, and after the static entries one entry per
+(instance, BLAS chunk) whose box is the instance's world-space motion-union
+box (`extend_pallas_instanced`). For such an entry the kernels take each
+lane's ray into the instance's local space at the lane's shutter fraction
+(`xform_rays`, the counterpart of the reference's in-kernel `_xform_rays`)
+before the triangle tests; boxes, bounds and t stay in world space.
 """
 from __future__ import annotations
 
@@ -23,6 +31,13 @@ import numpy as np
 import torch
 
 from ..core.math3d import cross
+from ..core.transform import (
+    decompose_trs,
+    motion_bounds_np,
+    trs_at,
+    trs_inv_apply_point,
+    trs_inv_apply_vector,
+)
 from .intersect import RAY_EPSILON, Hit, moller_trumbore
 
 Tensor = torch.Tensor
@@ -34,14 +49,44 @@ T_FAR = 3e38
 KCOLS = 24     # kernel row per triangle: e0(6) e1(6) e2(6) n(3) d0 pad pad
 MAX_CHUNK = 128
 
-# Kernel launches since the last reset, by kernel name. Only the CUDA
-# launches count; the plain versions do not.
-LAUNCHES = {"closest_hit": 0, "any_hit": 0}
+# Kernel launches since the last reset, by kernel name: each wrapper adds
+# one where it launches its kernel. The plain versions do not count.
+# `xform_rays` is the transform launched on its own; the casts never do
+# that (inside the traversal kernels it is a device function, whose work
+# `track_work` counts).
+LAUNCHES = {"closest_hit": 0, "any_hit": 0, "xform_rays": 0}
+
+# Work the casts' kernels needed since `track_work(device)`, counted on the
+# device by the kernels themselves: int64 [closest-hit tests, closest-hit
+# transforms, any-hit tests, any-hit transforms]. None: not tracked.
+WORK: Tensor | None = None
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def track_work(device=None) -> None:
+    """Start (a device) or stop (None) counting, in `WORK`, the ray-triangle
+    tests and instance transforms that the casts' rays need. CUDA only: the
+    plain versions count nothing."""
+    global WORK
+    WORK = None if device is None else torch.zeros(4, dtype=torch.int64,
+                                                   device=device)
+
+
+def _work_counters(rays: Tensor):
+    if WORK is None or rays.device.type != "cuda":
+        return None, None
+    return (torch.zeros(rays.shape[0], dtype=torch.int32, device=rays.device),
+            torch.zeros(rays.shape[0], dtype=torch.int32, device=rays.device))
+
+
+def _add_work(at: int, tests: Tensor | None, xforms: Tensor | None) -> None:
+    if tests is not None:
+        WORK[at] += tests.sum()
+        WORK[at + 1] += xforms.sum()
 
 
 # ---------------------------------------------------------------------------
@@ -71,6 +116,8 @@ class PallasTris:
     entry_chunk / entry_inst: (NE,) int32 chunk and instance per entry
     inst_trs: (I, 24) f32 instance transforms (instanced scenes only)
     tri24: (NC, C, 24) f32 derived kernel rows (see `kernel_tris`)
+    n_valid: (NC,) int32 derived: the triangles each chunk holds, which
+        fill its first slots (the rest is zero padding)
     instanced: whether any entry is instanced (host flag, set at build)
     """
 
@@ -81,6 +128,7 @@ class PallasTris:
     entry_inst: Tensor = None
     inst_trs: Tensor = None
     tri24: Tensor = None
+    n_valid: Tensor = None
     instanced: bool = None
 
     def __post_init__(self):
@@ -95,6 +143,9 @@ class PallasTris:
             self.instanced = bool((self.entry_inst >= 0).any())
         if self.tri24 is None:
             self.tri24 = kernel_tris(self.tris, self.chunk)
+        if self.n_valid is None:
+            self.n_valid = (self.remap.reshape(self.n_chunks, -1) >= 0).sum(
+                1, dtype=torch.int32)
 
     @property
     def chunk(self) -> int:
@@ -168,34 +219,23 @@ def _morton_order(cent: np.ndarray) -> np.ndarray:
     return np.argsort(code, kind="stable").astype(np.int32)
 
 
-def build_pallas_tris(geom, chunk: int = DEFAULT_CHUNK, bvh=None) -> PallasTris:
-    """Morton-sliced chunk tables of `geom`'s triangles (host, numpy).
-    Treelet chunking from an SBVH is not ported yet."""
-    if bvh is not None:
-        raise NotImplementedError("SBVH treelet chunking is not ported yet")
-    pos = np.asarray(geom.positions)
-    tri = np.asarray(geom.tri_vidx)
-    t = len(tri)
-    if t > 1:
-        order = _morton_order((pos[tri[:, 0]] + pos[tri[:, 1]]
-                               + pos[tri[:, 2]]) / 3.0)
-    else:
-        order = np.zeros((max(t, 1),), np.int32)
-    chunk_tris = [order[i:i + chunk] for i in range(0, max(t, 1), chunk)]
-
+def chunk_table_rows(pos: np.ndarray, tri: np.ndarray, chunk_tris: list,
+                     chunk: int = DEFAULT_CHUNK) -> tuple:
+    """Chunk-table packing shared by static and BLAS chunks: a list of
+    triangle-id arrays -> (tris (NC, 16, 5C'), AABBs (NC, 6), remap
+    (NC*C,)). Padding slots hold zero geometry, so n.d = 0 rejects them."""
     nc = len(chunk_tris)
     slot_tri = np.zeros((nc, chunk), np.int64)
     slot_valid = np.zeros((nc, chunk), bool)
-    boxes = np.zeros((nc, 8), np.float32)
+    boxes = np.zeros((nc, 6), np.float32)
     for c, ids in enumerate(chunk_tris):
         k = len(ids)
         slot_tri[c, :k] = ids
         slot_valid[c, :k] = True
         if k:
-            pts = pos[tri[ids].reshape(-1)]
+            pts = pos[tri[np.asarray(ids, np.int64)].reshape(-1)]
             boxes[c, 0:3] = pts.min(axis=0)
             boxes[c, 3:6] = pts.max(axis=0)
-            boxes[c, 6] = 1.0
 
     flat_tri = slot_tri.reshape(-1)
     p0 = pos[tri[flat_tri, 0]]
@@ -229,6 +269,28 @@ def build_pallas_tris(geom, chunk: int = DEFAULT_CHUNK, bvh=None) -> PallasTris:
         tris = np.concatenate(
             [tris, np.zeros((nc, ROWS, wpad - 5 * chunk), np.float32)], axis=2)
     remap = np.where(v, flat_tri, -1).astype(np.int32)
+    return tris, boxes, remap
+
+
+def build_pallas_tris(geom, chunk: int = DEFAULT_CHUNK, bvh=None) -> PallasTris:
+    """Morton-sliced chunk tables of `geom`'s triangles (host, numpy).
+    Treelet chunking from an SBVH is not ported yet."""
+    if bvh is not None:
+        raise NotImplementedError("SBVH treelet chunking is not ported yet")
+    pos = np.asarray(geom.positions)
+    tri = np.asarray(geom.tri_vidx)
+    t = len(tri)
+    if t > 1:
+        order = _morton_order((pos[tri[:, 0]] + pos[tri[:, 1]]
+                               + pos[tri[:, 2]]) / 3.0)
+    else:
+        order = np.zeros((max(t, 1),), np.int32)
+    chunk_tris = [order[i:i + chunk] for i in range(0, max(t, 1), chunk)]
+    tris, boxes6, remap = chunk_table_rows(pos, tri, chunk_tris, chunk)
+    nc = len(chunk_tris)
+    boxes = np.zeros((nc, 8), np.float32)
+    boxes[:, 0:6] = boxes6
+    boxes[:, 6] = [1.0 if len(ids) else 0.0 for ids in chunk_tris]
     return PallasTris(
         tris=torch.from_numpy(tris),
         boxes=torch.from_numpy(boxes),
@@ -236,6 +298,94 @@ def build_pallas_tris(geom, chunk: int = DEFAULT_CHUNK, bvh=None) -> PallasTris:
         entry_chunk=torch.arange(nc, dtype=torch.int32),
         entry_inst=torch.full((nc,), -1, dtype=torch.int32),
         inst_trs=torch.zeros((1, 24), dtype=torch.float32),
+    )
+
+
+def extend_pallas_instanced(static_pt: PallasTris, positions, tri_vidx,
+                            blas_ranges: list, rows: list) -> PallasTris:
+    """Append local-space BLAS chunks and one worklist entry per (instance,
+    BLAS chunk) to a static chunk table, so one traversal covers the whole
+    two-level scene. Entry boxes are the instance-transformed world AABBs of
+    each BLAS chunk (the union over the shutter for animated rows).
+
+    `inst_trs` row per instance: [T0(3) Q0(4) S0(3) T1(3) Q1(4) S1(3) theta
+    sin(theta) 0 0], Q1 already flipped onto Q0's hemisphere and theta the
+    angle between them, so the kernels slerp without an acos."""
+    pos = np.asarray(positions, np.float32)
+    tv = np.asarray(tri_vidx, np.int64)
+    chunk = static_pt.chunk
+    all_tris = [static_pt.tris.numpy()]
+    all_remap = [static_pt.remap.numpy()]
+    local_boxes: list[np.ndarray] = []
+    blas_chunk_ids: list[np.ndarray] = []
+    next_chunk = static_pt.n_chunks
+    # Chunk each BLAS's local triangles (Morton order within the BLAS).
+    for lo, hi in blas_ranges:
+        ids = np.arange(lo, hi, dtype=np.int64)
+        if len(ids) > 1:
+            cent = (pos[tv[ids, 0]] + pos[tv[ids, 1]] + pos[tv[ids, 2]]) / 3.0
+            ids = ids[_morton_order(cent)]
+        pieces = [ids[i:i + chunk] for i in range(0, len(ids), chunk)]
+        tris_b, boxes_b, remap_b = chunk_table_rows(pos, tv, pieces, chunk)
+        all_tris.append(tris_b)
+        all_remap.append(remap_b)
+        local_boxes.append(boxes_b)
+        blas_chunk_ids.append(
+            np.arange(next_chunk, next_chunk + len(pieces), dtype=np.int32))
+        next_chunk += len(pieces)
+
+    # Entries: static chunks first, then (instance x BLAS chunk).
+    e_box = [static_pt.boxes.numpy()]
+    e_chunk = [static_pt.entry_chunk.numpy()]
+    e_inst = [static_pt.entry_inst.numpy()]
+    inst_trs = np.zeros((max(len(rows), 1), 24), np.float32)
+    for i, (bid, m0, m1) in enumerate(rows):
+        tr0 = decompose_trs(m0)
+        tr1 = decompose_trs(m1)
+        T0, Q0, S0 = tr0
+        T1, Q1, S1 = tr1
+        d_q = float(np.dot(Q0, Q1))
+        theta = float(np.arccos(np.clip(abs(d_q), 0.0, 1.0)))
+        inst_trs[i, 0:3] = T0
+        inst_trs[i, 3:7] = Q0
+        inst_trs[i, 7:10] = S0
+        inst_trs[i, 10:13] = T1
+        inst_trs[i, 13:17] = Q1 if d_q >= 0 else -Q1
+        inst_trs[i, 17:20] = S1
+        inst_trs[i, 20] = theta
+        inst_trs[i, 21] = float(np.sin(theta))
+        static = np.allclose(np.asarray(m0), np.asarray(m1))
+        lb = local_boxes[bid]
+        eb = np.zeros((lb.shape[0], 8), np.float32)
+        for c in range(lb.shape[0]):
+            eb[c, 0:3], eb[c, 3:6] = motion_bounds_np(
+                lb[c, 0:3], lb[c, 3:6], tr0, tr1, steps=1 if static else 16)
+            eb[c, 6] = 1.0
+        e_box.append(eb)
+        e_chunk.append(blas_chunk_ids[bid])
+        e_inst.append(np.full((lb.shape[0],), i, np.int32))
+
+    # Morton-order the instanced entries by world box center: instances are
+    # recorded in author order, so consecutive entries (and the 16-entry
+    # super boxes built over them) would otherwise span the whole scene.
+    n_static_e = e_box[0].shape[0]
+    boxes_all = np.concatenate(e_box, axis=0)
+    e_chunk_all = np.concatenate(e_chunk, axis=0)
+    e_inst_all = np.concatenate(e_inst, axis=0)
+    tail = slice(n_static_e, boxes_all.shape[0])
+    if boxes_all[tail].shape[0] > 1:
+        cent = 0.5 * (boxes_all[tail, 0:3] + boxes_all[tail, 3:6])
+        order = _morton_order(cent)
+        boxes_all[tail] = boxes_all[tail][order]
+        e_chunk_all[tail] = e_chunk_all[tail][order]
+        e_inst_all[tail] = e_inst_all[tail][order]
+    return PallasTris(
+        tris=torch.from_numpy(np.concatenate(all_tris, axis=0)),
+        boxes=torch.from_numpy(boxes_all),
+        remap=torch.from_numpy(np.concatenate(all_remap, axis=0)),
+        entry_chunk=torch.from_numpy(e_chunk_all),
+        entry_inst=torch.from_numpy(e_inst_all),
+        inst_trs=torch.from_numpy(inst_trs),
     )
 
 
@@ -277,9 +427,10 @@ def _scene_exit_clamp(o: Tensor, d: Tensor, tmax_a: Tensor,
 
 
 def _pack_rays(o: Tensor, d: Tensor, tmin_a: Tensor, tmax_a: Tensor,
-               rb: int = RB) -> tuple[Tensor, int]:
+               rb: int = RB, f: Tensor | None = None) -> tuple[Tensor, int]:
     """(R, 3)x2 + (R,)x2 -> (NB, 16, rb) rows [d, m = o x d, o, 1, tmin,
-    tmax, 0...]. Padding lanes are inert: degenerate [T_FAR, -T_FAR]."""
+    tmax, f, 0...]; row 12 is the per-ray shutter fraction (instanced
+    scenes). Padding lanes are inert: degenerate [T_FAR, -T_FAR]."""
     r = o.shape[0]
     nb = -(-r // rb)
     rays = torch.zeros((nb * rb, ROWS), dtype=torch.float32, device=o.device)
@@ -289,6 +440,8 @@ def _pack_rays(o: Tensor, d: Tensor, tmin_a: Tensor, tmax_a: Tensor,
     rays[:r, 9] = 1.0
     rays[:r, 10] = tmin_a
     rays[:r, 11] = tmax_a
+    if f is not None:
+        rays[:r, 12] = f
     rays[r:, 2] = 1.0
     rays[r:, 10] = T_FAR
     rays[r:, 11] = -T_FAR
@@ -344,25 +497,70 @@ def _auto_rb(pt: PallasTris) -> int:
     return 128 if pt.n_entries > 128 else RB
 
 
-def _refuse_instanced(pt: PallasTris) -> None:
-    if pt.instanced:
-        raise NotImplementedError(
-            "instanced chunk tables (entry_inst >= 0) need the in-kernel "
-            "instance transform, which is not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions of the kernels
 # ---------------------------------------------------------------------------
 
-def _ray_rows(rays: Tensor):
-    return [rays[:, i, :, None] for i in range(12)]            # (NB, RB, 1)
+def xform_rays_plain(rays: Tensor, trs_rows: Tensor) -> Tensor:
+    """The instance transform in plain PyTorch: every lane's ray of block b
+    into the local space of the instance whose `inst_trs` row is
+    trs_rows[b], at the lane's shutter fraction (ray row 12).
+
+    rays (NB, 16, RB), trs_rows (NB, 24) -> (NB, 9, RB) rows [d, m, o] of
+    the local ray: o_l = R^-1 (o - T) / S, d_l = R^-1 d / S (unnormalized,
+    so t stays the world parameter), m = o_l x d_l. The rotation is the
+    slerp of Q0 and the pre-flipped Q1 with weights from theta and
+    sin(theta) (a lerp where sin(theta) < 1e-4), renormalized with rsqrt;
+    T and S are lerped. The same steps in the same order as the device
+    function `xform_ray` of csrc/traverse.cu."""
+    c = [trs_rows[:, j, None] for j in range(22)]              # (NB, 1)
+    f = rays[:, 12, :]
+    theta, sin_t = c[20], c[21]
+    near = sin_t < 1e-4
+    inv_sin = 1.0 / torch.where(near, 1.0, sin_t)
+    one_f = 1.0 - f
+    w0 = torch.where(near, one_f, torch.sin(one_f * theta) * inv_sin)
+    w1 = torch.where(near, f, torch.sin(f * theta) * inv_sin)
+    qx = w0 * c[3] + w1 * c[13]
+    qy = w0 * c[4] + w1 * c[14]
+    qz = w0 * c[5] + w1 * c[15]
+    qw = w0 * c[6] + w1 * c[16]
+    qn = torch.rsqrt(torch.clamp(qx * qx + qy * qy + qz * qz + qw * qw,
+                                 min=1e-20))
+    qx, qy, qz, qw = qx * qn, qy * qn, qz * qn, qw * qn
+    tx = one_f * c[0] + f * c[10]
+    ty = one_f * c[1] + f * c[11]
+    tz = one_f * c[2] + f * c[12]
+    inv_sx = 1.0 / (one_f * c[7] + f * c[17])
+    inv_sy = 1.0 / (one_f * c[8] + f * c[18])
+    inv_sz = 1.0 / (one_f * c[9] + f * c[19])
+
+    def invrot(vx, vy, vz):
+        # R^-1 v = v + 2 (-qw (u x v) + u x (u x v)), u = (qx, qy, qz)
+        cx = qy * vz - qz * vy
+        cy = qz * vx - qx * vz
+        cz = qx * vy - qy * vx
+        ex = qy * cz - qz * cy
+        ey = qz * cx - qx * cz
+        ez = qx * cy - qy * cx
+        return (vx + 2.0 * (-qw * cx + ex), vy + 2.0 * (-qw * cy + ey),
+                vz + 2.0 * (-qw * cz + ez))
+
+    olx, oly, olz = invrot(rays[:, 6, :] - tx, rays[:, 7, :] - ty,
+                           rays[:, 8, :] - tz)
+    olx, oly, olz = olx * inv_sx, oly * inv_sy, olz * inv_sz
+    dlx, dly, dlz = invrot(rays[:, 0, :], rays[:, 1, :], rays[:, 2, :])
+    dlx, dly, dlz = dlx * inv_sx, dly * inv_sy, dlz * inv_sz
+    return torch.stack([dlx, dly, dlz,
+                        oly * dlz - olz * dly, olz * dlx - olx * dlz,
+                        olx * dly - oly * dlx, olx, oly, olz], dim=1)
 
 
-def _plucker_terms(rows, tk: Tensor):
-    """tk (NB, 1, C, 24): the three side products, n.d and d0 - n.o, in the
-    kernel's order of operations."""
-    dx, dy, dz, mx, my, mz, ox, oy, oz = rows[:9]
+def _plucker_terms(line: Tensor, tk: Tensor):
+    """line (NB, 9, RB) rows [d, m, o]; tk (NB, 1, C, 24): the three side
+    products, n.d and d0 - n.o, in the kernel's order of operations."""
+    dx, dy, dz, mx, my, mz, ox, oy, oz = (line[:, i, :, None]
+                                          for i in range(9))
     T = [tk[..., j] for j in range(22)]
     s0 = dx * T[0] + dy * T[1] + dz * T[2] + mx * T[3] + my * T[4] + mz * T[5]
     s1 = (dx * T[6] + dy * T[7] + dz * T[8] + mx * T[9] + my * T[10]
@@ -376,9 +574,18 @@ def _plucker_terms(rows, tk: Tensor):
     return through, den, num
 
 
-def _entry_tables(pt: PallasTris, wl2: Tensor, k: int) -> tuple[Tensor, Tensor]:
-    ch = pt.entry_chunk.to(torch.int64)[wl2[:, k]]             # (NB,)
-    return ch, pt.tri24[ch][:, None]                           # (NB,1,C,24)
+def _entry_tables(pt: PallasTris, rays: Tensor, wl2: Tensor, k: int):
+    """Step k of every block's worklist: (chunk id (NB,), instance id (NB,),
+    kernel rows (NB, 1, C, 24), ray rows [d, m, o] (NB, 9, RB) in the space
+    the chunk's triangles live in)."""
+    e = wl2[:, k]
+    ch = pt.entry_chunk.to(torch.int64)[e]
+    inst = pt.entry_inst.to(torch.int64)[e]
+    line = rays[:, 0:9, :]
+    if pt.instanced:
+        local = xform_rays_plain(rays, pt.inst_trs[torch.clamp(inst, min=0)])
+        line = torch.where((inst >= 0)[:, None, None], local, line)
+    return ch, inst, pt.tri24[ch][:, None], line
 
 
 def closest_hit_plain(rays: Tensor, wl: Tensor, cnt: Tensor,
@@ -387,15 +594,15 @@ def closest_hit_plain(rays: Tensor, wl: Tensor, cnt: Tensor,
     entry of each block, in order, with no culling (culled entries cannot
     hold a closer hit)."""
     nb, _, rb = rays.shape
-    rows = _ray_rows(rays)
-    tmin = rows[10]
+    tmin = rays[:, 10, :, None]
     best = rays[:, 11, :].clone()
     idx = torch.full((nb, rb), -1, dtype=torch.int64, device=rays.device)
+    best_inst = torch.full_like(idx, -1)
     wl2 = wl.reshape(nb, -1).to(torch.int64)
     chunk = pt.chunk
     for k in range(int(cnt.max()) if nb else 0):
-        ch, tk = _entry_tables(pt, wl2, k)
-        through, den, num = _plucker_terms(rows, tk)
+        ch, inst, tk, line = _entry_tables(pt, rays, wl2, k)
+        through, den, num = _plucker_terms(line, tk)
         ok = den.abs() > 1e-12
         t = num / torch.where(ok, den, 1.0)
         hit = (through & ok & (t >= tmin) & (t < best[..., None])
@@ -404,20 +611,20 @@ def closest_hit_plain(rays: Tensor, wl: Tensor, cnt: Tensor,
         closer = t_min < best
         best = torch.where(closer, t_min, best)
         idx = torch.where(closer, ch[:, None] * chunk + a_min, idx)
-    return best, idx.to(torch.int32), torch.full_like(idx, -1, dtype=torch.int32)
+        best_inst = torch.where(closer, inst[:, None], best_inst)
+    return best, idx.to(torch.int32), best_inst.to(torch.int32)
 
 
 def any_hit_plain(rays: Tensor, wl: Tensor, cnt: Tensor,
                   pt: PallasTris) -> Tensor:
     """The any-hit kernel's function in plain PyTorch (occluded, int32)."""
     nb, _, rb = rays.shape
-    rows = _ray_rows(rays)
-    tmin, tmax = rows[10], rows[11]
+    tmin, tmax = rays[:, 10, :, None], rays[:, 11, :, None]
     occ = torch.zeros((nb, rb), dtype=torch.bool, device=rays.device)
     wl2 = wl.reshape(nb, -1).to(torch.int64)
     for k in range(int(cnt.max()) if nb else 0):
-        _, tk = _entry_tables(pt, wl2, k)
-        through, den, num = _plucker_terms(rows, tk)
+        _, _, tk, line = _entry_tables(pt, rays, wl2, k)
+        through, den, num = _plucker_terms(line, tk)
         lo = num - tmin * den
         hi = num - tmax * den
         hit = through & (lo * hi <= 0) & (den.abs() > 1e-12) & (tmax >= tmin)
@@ -436,8 +643,9 @@ def _ptr(t: Tensor | None):
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of csrc/traverse.cu: pointers, then sizes, then the stream.
 _SIGNATURES = {
-    "slr_closest_hit": [_P] * 11 + [_I] * 4 + [_P],
-    "slr_any_hit": [_P] * 9 + [_I] * 4 + [_P],
+    "slr_closest_hit": [_P] * 15 + [_I] * 4 + [_P],
+    "slr_any_hit": [_P] * 13 + [_I] * 4 + [_P],
+    "slr_xform_rays": [_P] * 3 + [_I] * 2 + [_P],
 }
 
 
@@ -447,24 +655,33 @@ def _library():
     return load_library("traverse", _SIGNATURES)
 
 
-def _check_kernel_args(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
-                       pt: PallasTris, tests: Tensor | None) -> tuple[int, int, int]:
-    nb, rows, rb = rays.shape
-    ne = pt.n_entries
-    dev = rays.device
-    want = [(rays, torch.float32, (nb, ROWS, rb)),
-            (wl, torch.int32, (nb * ne,)), (wtn, torch.float32, (nb * ne,)),
-            (cnt, torch.int32, (nb,)), (pt.boxes, torch.float32, (ne, 8)),
-            (pt.entry_chunk, torch.int32, (ne,)),
-            (pt.tri24, torch.float32, (pt.n_chunks, pt.chunk, KCOLS))]
-    if tests is not None:
-        want.append((tests, torch.int32, (nb,)))
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _check_tensors(want, dev) -> None:
     for t, dtype, shape in want:
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(
                 f"traversal kernel argument {tuple(t.shape)} {t.dtype} on "
                 f"{t.device}: expected contiguous {shape} {dtype} on {dev}")
+
+
+def _check_kernel_args(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
+                       pt: PallasTris, counters) -> tuple[int, int, int]:
+    nb, rows, rb = rays.shape
+    ne = pt.n_entries
+    want = [(rays, torch.float32, (nb, ROWS, rb)),
+            (wl, torch.int32, (nb * ne,)), (wtn, torch.float32, (nb * ne,)),
+            (cnt, torch.int32, (nb,)), (pt.boxes, torch.float32, (ne, 8)),
+            (pt.entry_chunk, torch.int32, (ne,)),
+            (pt.entry_inst, torch.int32, (ne,)),
+            (pt.inst_trs, torch.float32, (pt.inst_trs.shape[0], 24)),
+            (pt.tri24, torch.float32, (pt.n_chunks, pt.chunk, KCOLS)),
+            (pt.n_valid, torch.int32, (pt.n_chunks,))]
+    want += [(c, torch.int32, (nb,)) for c in counters if c is not None]
+    _check_tensors(want, rays.device)
     if rows != ROWS or rb % 32 or not 32 <= rb <= 1024:
         raise ValueError(f"ray block of {rb} lanes is not supported")
     if pt.chunk > MAX_CHUNK:
@@ -473,13 +690,16 @@ def _check_kernel_args(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
 
 
 def closest_hit(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
-                pt: PallasTris, tests: Tensor | None = None
+                pt: PallasTris, tests: Tensor | None = None,
+                xforms: Tensor | None = None
                 ) -> tuple[Tensor, Tensor, Tensor]:
     """Closest hit per packed ray over its block's worklist.
     Returns (best_t (NB, RB) f32, best_idx = chunk*C + slot int32,
-    best_inst int32 = -1). `tests` (NB,) int32, if given, receives the
-    number of ray-triangle tests each kernel block's rays need: those of
-    live rays against the chunks whose box they meet.
+    best_inst int32: the winning entry's instance, -1 for a static entry or
+    a miss). `tests` (NB,) int32, if given, receives the number of
+    ray-triangle tests each kernel block's rays need: those of live rays
+    against the triangles of the chunks whose box they meet; `xforms`
+    likewise the number of (ray, instanced entry) transforms among them.
 
     Replaces the TPU kernel of slr_tpu/accel/pallas_intersect.py
     `_run_kernel` (`_kernel_smallwl` / `_kernel` -> `_traverse_closest`).
@@ -488,56 +708,90 @@ def closest_hit(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
     the kernel visits only the entries some ray of the block can still hit
     closer. With one thread per ray it is latency-bound well above that
     floor at the main path's lane count (see csrc/traverse.cu)."""
-    _refuse_instanced(pt)
     if rays.device.type == "cpu":
         return closest_hit_plain(rays, wl, cnt, pt)
     if rays.device.type != "cuda":
         raise ValueError(f"closest_hit: unsupported device {rays.device}")
     from ..core.cuda_build import check
 
-    nb, rb, ne = _check_kernel_args(rays, wl, wtn, cnt, pt, tests)
+    nb, rb, ne = _check_kernel_args(rays, wl, wtn, cnt, pt, (tests, xforms))
     lib = _library()
     best_t = torch.empty((nb, rb), dtype=torch.float32, device=rays.device)
     best_idx = torch.empty((nb, rb), dtype=torch.int32, device=rays.device)
     best_inst = torch.empty((nb, rb), dtype=torch.int32, device=rays.device)
     code = lib.slr_closest_hit(
         _ptr(rays), _ptr(wl), _ptr(wtn), _ptr(cnt), _ptr(pt.boxes),
-        _ptr(pt.entry_chunk), _ptr(pt.tri24), _ptr(best_t), _ptr(best_idx),
-        _ptr(best_inst), _ptr(tests), nb, rb, ne, pt.chunk,
-        ctypes.c_void_p(torch.cuda.current_stream(rays.device).cuda_stream))
+        _ptr(pt.entry_chunk), _ptr(pt.entry_inst), _ptr(pt.inst_trs),
+        _ptr(pt.tri24), _ptr(best_t), _ptr(best_idx), _ptr(best_inst),
+        _ptr(pt.n_valid), _ptr(tests), _ptr(xforms), nb, rb, ne, pt.chunk,
+        _stream(rays.device))
     check(lib, code, "closest_hit launch")
     LAUNCHES["closest_hit"] += 1
     return best_t, best_idx, best_inst
 
 
 def any_hit(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
-            pt: PallasTris, tests: Tensor | None = None) -> Tensor:
+            pt: PallasTris, tests: Tensor | None = None,
+            xforms: Tensor | None = None) -> Tensor:
     """Occlusion per packed ray: 1 when some triangle has t in
-    [tmin, tmax]. Returns (NB, RB) int32; `tests` as in `closest_hit`.
+    [tmin, tmax]. Returns (NB, RB) int32; `tests` and `xforms` as in
+    `closest_hit`.
 
     Replaces the TPU kernel of slr_tpu/accel/pallas_intersect.py
     `_run_kernel_any` (`_kernel_any_smallwl` / `_kernel_any` ->
     `_traverse_any`). Its floor is fp32 arithmetic like closest_hit's (49
     operations per test, divide-free); a block stops once its live rays
     are all occluded."""
-    _refuse_instanced(pt)
     if rays.device.type == "cpu":
         return any_hit_plain(rays, wl, cnt, pt)
     if rays.device.type != "cuda":
         raise ValueError(f"any_hit: unsupported device {rays.device}")
     from ..core.cuda_build import check
 
-    nb, rb, ne = _check_kernel_args(rays, wl, wtn, cnt, pt, tests)
+    nb, rb, ne = _check_kernel_args(rays, wl, wtn, cnt, pt, (tests, xforms))
     lib = _library()
     occ = torch.empty((nb, rb), dtype=torch.int32, device=rays.device)
     code = lib.slr_any_hit(
         _ptr(rays), _ptr(wl), _ptr(wtn), _ptr(cnt), _ptr(pt.boxes),
-        _ptr(pt.entry_chunk), _ptr(pt.tri24), _ptr(occ), _ptr(tests), nb, rb,
-        ne, pt.chunk,
-        ctypes.c_void_p(torch.cuda.current_stream(rays.device).cuda_stream))
+        _ptr(pt.entry_chunk), _ptr(pt.entry_inst), _ptr(pt.inst_trs),
+        _ptr(pt.tri24), _ptr(occ), _ptr(pt.n_valid), _ptr(tests),
+        _ptr(xforms), nb, rb, ne, pt.chunk, _stream(rays.device))
     check(lib, code, "any_hit launch")
     LAUNCHES["any_hit"] += 1
     return occ
+
+
+def xform_rays(rays: Tensor, trs_rows: Tensor) -> Tensor:
+    """The instance transform on its own: block b's rays into the local
+    space of the instance row trs_rows[b] ((NB, 16, RB), (NB, 24) ->
+    (NB, 9, RB) rows [d, m, o]; see `xform_rays_plain`).
+
+    Replaces slr_tpu/accel/pallas_intersect.py `_xform_rays`, which the TPU
+    kernels run on a ray block before the triangle tests of an instanced
+    entry. Both traversal kernels call the same device function
+    (`xform_ray`, csrc/traverse.cu) per thread, with the local ray kept in
+    registers; this launch runs that function alone, so it can be held
+    against the plain version and timed. On its own it is bound by bytes
+    (ray rows 0-8 and 12 read, 40 B, and 36 B written per ray, plus one
+    96 B row per block, for 138 fp32 operations per ray)."""
+    if rays.device.type == "cpu":
+        return xform_rays_plain(rays, trs_rows)
+    if rays.device.type != "cuda":
+        raise ValueError(f"xform_rays: unsupported device {rays.device}")
+    from ..core.cuda_build import check
+
+    nb, rows, rb = rays.shape
+    _check_tensors([(rays, torch.float32, (nb, ROWS, rb)),
+                    (trs_rows, torch.float32, (nb, 24))], rays.device)
+    if rb % 32 or not 32 <= rb <= 1024:
+        raise ValueError(f"ray block of {rb} lanes is not supported")
+    lib = _library()
+    out = torch.empty((nb, 9, rb), dtype=torch.float32, device=rays.device)
+    code = lib.slr_xform_rays(_ptr(rays), _ptr(trs_rows), _ptr(out), nb, rb,
+                              _stream(rays.device))
+    check(lib, code, "xform_rays launch")
+    LAUNCHES["xform_rays"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -545,38 +799,52 @@ def any_hit(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
 # ---------------------------------------------------------------------------
 
 def prepare_cast(pt: PallasTris, o: Tensor, d: Tensor, tmin, tmax,
-                 active: Tensor | None, rb: int | None = None):
+                 active: Tensor | None, rb: int | None = None,
+                 f: Tensor | None = None):
     """Ranges, exit clamp, packed rays and worklists for one cast.
     Returns (rays, wl, cnt, wtn, tmax_a)."""
     r = o.shape[0]
     rb = rb or _auto_rb(pt)
     tmin_a, tmax_a = _ray_ranges(r, tmin, tmax, active, o.device)
     tmax_a = _scene_exit_clamp(o, d, tmax_a, pt.boxes)
-    rays, _ = _pack_rays(o, d, tmin_a, tmax_a, rb)
+    rays, _ = _pack_rays(o, d, tmin_a, tmax_a, rb, f)
     wl, cnt, wtn = _chunk_worklist(rays, pt.boxes)
     return rays, wl, cnt, wtn, tmax_a
 
 
 def anyhit_pallas(geom, pt: PallasTris, o: Tensor, d: Tensor,
                   tmin=RAY_EPSILON, tmax=float("inf"),
-                  active: Tensor | None = None, rb: int | None = None) -> Tensor:
+                  active: Tensor | None = None, rb: int | None = None,
+                  f: Tensor | None = None) -> Tensor:
     """Occlusion query (bool per ray): True if anything lies in
-    [tmin, tmax]."""
+    [tmin, tmax]. `f` is the per-ray shutter fraction (instanced tables)."""
     r = o.shape[0]
-    rays, wl, cnt, wtn, _ = prepare_cast(pt, o, d, tmin, tmax, active, rb)
-    return any_hit(rays, wl, wtn, cnt, pt).reshape(-1)[:r] > 0
+    rays, wl, cnt, wtn, _ = prepare_cast(pt, o, d, tmin, tmax, active, rb, f)
+    tests, xforms = _work_counters(rays)
+    occ = any_hit(rays, wl, wtn, cnt, pt, tests, xforms)
+    _add_work(2, tests, xforms)
+    return occ.reshape(-1)[:r] > 0
 
 
 def intersect_pallas(geom, pt: PallasTris, o: Tensor, d: Tensor,
                      tmin=RAY_EPSILON, tmax=float("inf"),
-                     active: Tensor | None = None, rb: int | None = None) -> Hit:
+                     active: Tensor | None = None, rb: int | None = None,
+                     f: Tensor | None = None, instances=None) -> Hit:
     """Closest hit via the worklist traversal, then the winning slot's
-    triangle and its Möller-Trumbore barycentrics."""
+    triangle and its Möller-Trumbore barycentrics. With an instanced table
+    pass the per-ray shutter fraction `f` and the scene's `Instances`, so
+    that a winner on an instance gets its barycentrics against the
+    local-space triangle; `Hit.inst` is then its instance (-1 elsewhere)."""
     r = o.shape[0]
-    rays, wl, cnt, wtn, tmax_a = prepare_cast(pt, o, d, tmin, tmax, active, rb)
-    best_t, best_idx, _ = closest_hit(rays, wl, wtn, cnt, pt)
+    rays, wl, cnt, wtn, tmax_a = prepare_cast(pt, o, d, tmin, tmax, active,
+                                              rb, f)
+    tests, xforms = _work_counters(rays)
+    best_t, best_idx, best_inst = closest_hit(rays, wl, wtn, cnt, pt, tests,
+                                              xforms)
+    _add_work(0, tests, xforms)
     best_t = best_t.reshape(-1)[:r]
     slot = best_idx.reshape(-1)[:r].to(torch.int64)
+    inst = best_inst.reshape(-1)[:r].to(torch.int64)
     tri = torch.where(slot >= 0,
                       pt.remap.to(torch.int64)[torch.clamp(slot, min=0)], -1)
     mask = (tri >= 0) & (best_t < T_FAR) & (best_t < tmax_a * (1.0 + 1e-6))
@@ -584,9 +852,25 @@ def intersect_pallas(geom, pt: PallasTris, o: Tensor, d: Tensor,
     p0 = row[:, 0:3]
     p1 = p0 + row[:, 3:6]
     p2 = p0 + row[:, 6:9]
-    t_mt, b1, b2, _ = moller_trumbore(o, d, p0, p1, p2, 0.0, float("inf"))
+    o_mt, d_mt = o, d
+    if instances is not None:
+        # The ray in the winning instance's space (unnormalized direction:
+        # t stays the world parameter), through the run-time slerp of
+        # core/transform.py as the reference does here.
+        f_ = torch.zeros((r,), device=o.device) if f is None else f
+        ic = torch.clamp(inst, min=0)
+        T, R, S = trs_at(instances.t0_T[ic], instances.t0_R[ic],
+                         instances.t0_S[ic], instances.t1_T[ic],
+                         instances.t1_R[ic], instances.t1_S[ic], f_)
+        on_inst = (inst >= 0)[:, None]
+        o_mt = torch.where(on_inst, trs_inv_apply_point(T, R, S, o), o)
+        d_mt = torch.where(on_inst, trs_inv_apply_vector(T, R, S, d), d)
+    t_mt, b1, b2, _ = moller_trumbore(o_mt, d_mt, p0, p1, p2, 0.0,
+                                      float("inf"))
     b1 = torch.clamp(b1, 0.0, 1.0)
     b2 = torch.clamp(b2, 0.0, 1.0)
     return Hit(t=torch.where(mask, t_mt, float("inf")),
                tri=torch.where(mask, tri, -1), b0=1.0 - b1 - b2, b1=b1,
-               mask=mask)
+               mask=mask,
+               inst=torch.where(mask, inst, -1) if instances is not None
+               else None)

@@ -3,9 +3,11 @@
 uses).
 
 Both casts go through the worklist traversal of accel/traverse.py: the
-hand-written kernels on the card, their plain versions on the CPU. Alpha
-cutouts, normal maps, instancing and the environment light are not ported
-yet; scenes that need them raise.
+hand-written kernels on the card, their plain versions on the CPU. A scene
+with instances passes each ray's shutter fraction `f` to the casts, whose
+kernels take the ray into an instance's space themselves. Alpha cutouts,
+normal maps and the environment light are not ported yet; scenes that need
+them raise.
 """
 from __future__ import annotations
 
@@ -14,7 +16,9 @@ import torch
 
 from ..accel.intersect import RAY_EPSILON, Hit, resolve_surface_point
 from ..accel.traverse import T_FAR, anyhit_pallas, intersect_pallas, nearest_super_tn
+from ..core.math3d import cross, normalize
 from ..core.sampling import sample_discrete_1d
+from ..core.transform import trs_apply_normal, trs_apply_vector, trs_at
 from ..scene.types import FlatScene
 
 Tensor = torch.Tensor
@@ -23,19 +27,30 @@ Tensor = torch.Tensor
 def _refuse_unported(scene: FlatScene) -> None:
     for flag, what in ((scene.has_alpha, "alpha cutouts"),
                        (scene.has_normal_map, "normal maps"),
-                       (scene.has_env, "environment lights"),
-                       (scene.instances is not None, "instancing")):
+                       (scene.has_env, "environment lights")):
         if flag:
             raise NotImplementedError(f"{what} are not ported yet")
+
+
+def _shutter(o: Tensor, f) -> Tensor:
+    """Per-ray shutter fraction; the shutter's opening when none is given."""
+    if f is None:
+        return torch.zeros(o.shape[:1], dtype=torch.float32, device=o.device)
+    return f
 
 
 def scene_intersect(scene: FlatScene, o: Tensor, d: Tensor,
                     tmin=RAY_EPSILON, tmax=float("inf"), f=None,
                     active: Tensor | None = None) -> Hit:
-    """Closest hit against the scene's chunk tables."""
+    """Closest hit against the scene's chunk tables: one traversal covers
+    the static triangles and, at shutter fraction `f`, the instances."""
     _refuse_unported(scene)
+    if scene.instances is None:
+        return intersect_pallas(scene.geometry, scene.pallas_tris, o, d, tmin,
+                                tmax, active=active)
     return intersect_pallas(scene.geometry, scene.pallas_tris, o, d, tmin,
-                            tmax, active=active)
+                            tmax, active=active, f=_shutter(o, f),
+                            instances=scene.instances)
 
 
 def scene_intersect_alpha(scene: FlatScene, o: Tensor, d: Tensor,
@@ -46,17 +61,37 @@ def scene_intersect_alpha(scene: FlatScene, o: Tensor, d: Tensor,
 
 
 def resolve_sp(scene: FlatScene, hit: Hit, o: Tensor, d: Tensor, f=None):
-    """Surface-point resolution at the hits."""
+    """Surface-point resolution at the hits. A hit on an instance has its
+    shading frame brought from the instance's local space to world space at
+    the ray's shutter fraction; its position is world-space already (o + d*t
+    with a world-parameter t)."""
     _refuse_unported(scene)
-    return resolve_surface_point(scene.geometry, hit, o, d)
+    sp = resolve_surface_point(scene.geometry, hit, o, d)
+    if scene.instances is None or hit.inst is None:
+        return sp
+    inst = scene.instances
+    i = torch.clamp(hit.inst, min=0)
+    T, R, S = trs_at(inst.t0_T[i], inst.t0_R[i], inst.t0_S[i],
+                     inst.t1_T[i], inst.t1_R[i], inst.t1_S[i],
+                     _shutter(o, f))
+    on_inst = (hit.inst >= 0)[..., None]
+    gn_w = normalize(trs_apply_normal(T, R, S, sp.gn))
+    sn_w = normalize(trs_apply_normal(T, R, S, sp.sn))
+    tan_w = normalize(trs_apply_vector(T, R, S, sp.tangent))
+    return sp._replace(
+        gn=torch.where(on_inst, gn_w, sp.gn),
+        sn=torch.where(on_inst, sn_w, sp.sn),
+        tangent=torch.where(on_inst, tan_w, sp.tangent),
+        bitangent=torch.where(on_inst, cross(sn_w, tan_w), sp.bitangent))
 
 
 def scene_occluded(scene: FlatScene, o: Tensor, d: Tensor, tmin, tmax,
                    f=None, active: Tensor | None = None) -> Tensor:
     """Occlusion-only query (bool per ray) through the any-hit traversal."""
     _refuse_unported(scene)
+    f_ = _shutter(o, f) if scene.instances is not None else None
     return anyhit_pallas(scene.geometry, scene.pallas_tris, o, d, tmin, tmax,
-                         active=active)
+                         active=active, f=f_)
 
 
 def _super_boxes(scene: FlatScene) -> Tensor:

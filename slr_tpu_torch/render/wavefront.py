@@ -109,7 +109,11 @@ def _fresh_sample(scene: FlatScene, pid: Tensor, sid: Tensor, seed: int,
         lambdas = torch.zeros(pid.shape + (s,), dtype=torch.float32,
                               device=pid.device)
         hero = torch.clamp((u_wl * s).to(torch.int64), max=s - 1)
-    f_time = torch.zeros(pid.shape, dtype=torch.float32, device=pid.device)
+    if scene.instances is not None:
+        f_time = rng.uniform(seed, pid, sid, 0, Decision.TIME)
+    else:
+        f_time = torch.zeros(pid.shape, dtype=torch.float32,
+                             device=pid.device)
     return rays, hero, lambdas, f_time
 
 
@@ -169,12 +173,14 @@ def _run_wavefront(scene: FlatScene, n_pix: int, spp_end: int, seed: int,
         lane_on = lane.work < total
         pixel_id, sample_id = _work_pixel_sample(lane.work, n_pix,
                                                  sample_offset)
+        # A path keeps its sample's shutter fraction for all its casts.
+        ft = lane.f_time if scene.instances is not None else None
         lam_s = lane.lambdas if spectral else None
 
         # ---- cast the in-flight ray -------------------------------------
-        hit = scene_intersect_alpha(scene, lane.ray_o, lane.ray_d,
+        hit = scene_intersect_alpha(scene, lane.ray_o, lane.ray_d, f=ft,
                                     active=lane_on)
-        sp = resolve_sp(scene, hit, lane.ray_o, lane.ray_d)
+        sp = resolve_sp(scene, hit, lane.ray_o, lane.ray_d, f=ft)
         hit_ok = lane_on & hit.mask
         first = lane.bounce == 0
 
@@ -223,7 +229,8 @@ def _run_wavefront(scene: FlatScene, n_pix: int, spp_end: int, seed: int,
         # b < max_depth; the same condition gates extending.
         depth_ok = (lane.bounce < max_depth) & ~lane.last
         vis = ~scene_occluded(scene, sp.p, shadow_dir, RAY_EPSILON,
-                              shadow_tmax, active=hit_ok & depth_ok & nondelta)
+                              shadow_tmax, f=ft,
+                              active=hit_ok & depth_ok & nondelta)
         shadow_dir_sn = frame_to_local(fx, fy, fz, shadow_dir)
         fs_nee = bsdf_evaluate(lobes, wo, shadow_dir_sn, gn_sn, lane.hero)
         pdf_bsdf_w = bsdf_pdf(lobes, wo, shadow_dir_sn, gn_sn, lane.hero)

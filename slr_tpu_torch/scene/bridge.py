@@ -4,8 +4,12 @@ same arrays in the tests.
 `from_reference` walks the reference scene's fields by name — its tables are
 dataclasses (flax struct nodes) or NamedTuples — and builds the port's
 tables from them: each array leaf becomes a tensor via numpy, static fields
-are copied. It imports nothing of the reference package or of JAX; any
-object with the same field names works.
+are copied. An instanced scene comes across whole: the extended chunk
+table (`entry_inst`, `inst_trs`; the port derives `tri24`, `n_valid` and
+the `instanced` flag), the `Instances` rows (not the reference's TLAS / BLAS
+node arena, which the port has no fields for) and `n_static`.
+It imports nothing of the reference package or of JAX; any object with the
+same field names works.
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ _STATIC = {"n_static", "lobe_kinds_present", "has_env", "has_alpha",
            "has_one_minus"}
 
 # Port-only fields the port derives itself.
-_DERIVED = {(PallasTris, "tri24"), (PallasTris, "instanced")}
+_DERIVED = {(PallasTris, "tri24"), (PallasTris, "n_valid"),
+            (PallasTris, "instanced")}
 
 
 def _field_names(cls) -> list[str]:

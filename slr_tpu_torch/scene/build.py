@@ -1,9 +1,10 @@
 """Host-side scene builder: authoring calls -> FlatScene tensors
 (counterpart of slr_tpu/scene/build.py).
 
-The slice ports what the built-in Cornell scenes use: constant and
-tabulated spectra, matte/metal/glass/emitter materials, triangle meshes with
-baked static transforms and the perspective camera. Instancing, image /
+Ported so far: what the built-in Cornell and grass-field scenes use.
+Constant and tabulated spectra, matte/metal/glass/emitter materials,
+triangle meshes with baked static transforms, shared BLASes with static or
+animated instances (motion blur), and the perspective camera. Image /
 checker / voronoi textures, normal maps, the environment light and SBVH
 chunking (`use_bvh=True`) are not ported yet. All arrays are built with
 numpy on the host and become CPU tensors; `FlatScene.to` moves them.
@@ -93,6 +94,11 @@ class SceneBuilder:
         self.tri_alpha: list[np.ndarray] = []
         self.tri_ntex: list[np.ndarray] = []
         self._nverts = 0
+        # Instancing: recorded BLASes (local-space mesh lists) and the
+        # instance rows (blas_id, matrix at shutter begin, ... at shutter end).
+        self._blas: list[dict] = []
+        self._cur_blas: Optional[dict] = None
+        self.instance_rows: list[tuple[int, np.ndarray, np.ndarray]] = []
         self.camera: Optional[Camera] = None
 
     # -- textures -----------------------------------------------------------
@@ -216,6 +222,18 @@ class SceneBuilder:
             tangents = tangents / np.maximum(tnorms, 1e-20)
         n_tris = tri_vidx.shape[0]
         mat = np.broadcast_to(np.asarray(mat_id, np.int32), (n_tris,))
+        if self._cur_blas is not None:
+            b = self._cur_blas
+            b["positions"].append(positions)
+            b["normals"].append(normals)
+            b["tangents"].append(tangents)
+            b["uvs"].append(uvs)
+            b["tri_vidx"].append(tri_vidx + b["nverts"])
+            b["tri_mat"].append(mat.copy())
+            b["tri_alpha"].append(np.full((n_tris,), -1, np.int32))
+            b["tri_ntex"].append(np.full((n_tris,), -1, np.int32))
+            b["nverts"] += positions.shape[0]
+            return
         self.positions.append(positions)
         self.normals.append(normals)
         self.tangents.append(tangents)
@@ -225,6 +243,33 @@ class SceneBuilder:
         self.tri_alpha.append(np.full((n_tris,), -1, np.int32))
         self.tri_ntex.append(np.full((n_tris,), -1, np.int32))
         self._nverts += positions.shape[0]
+
+    # -- instancing / motion blur -------------------------------------------
+    def begin_blas(self) -> int:
+        """Start recording a shared BLAS: `add_mesh` calls append local-space
+        geometry to it until `end_blas()`. Returns its id."""
+        if self._cur_blas is not None:
+            raise ValueError("nested BLAS recording")
+        self._cur_blas = {
+            "positions": [], "normals": [], "tangents": [], "uvs": [],
+            "tri_vidx": [], "tri_mat": [], "tri_alpha": [], "tri_ntex": [],
+            "nverts": 0,
+        }
+        self._blas.append(self._cur_blas)
+        return len(self._blas) - 1
+
+    def end_blas(self) -> None:
+        if self._cur_blas is None or not self._cur_blas["positions"]:
+            raise ValueError("no BLAS is being recorded, or it is empty")
+        self._cur_blas = None
+
+    def add_instance(self, blas_id: int, m_begin: np.ndarray,
+                     m_end: Optional[np.ndarray] = None) -> None:
+        """Instance a recorded BLAS with world transforms at the shutter's
+        two ends (equal, or m_end=None, for a static instance)."""
+        m0 = np.asarray(m_begin, np.float32)
+        m1 = m0 if m_end is None else np.asarray(m_end, np.float32)
+        self.instance_rows.append((blas_id, m0, m1))
 
     # -- camera -------------------------------------------------------------
     def set_camera_perspective(self, to_world, aspect: float, fovy: float,
@@ -240,29 +285,129 @@ class SceneBuilder:
         )
 
     # -- build --------------------------------------------------------------
-    def build(self, use_bvh: bool = False) -> FlatScene:
+    def build(self, use_bvh: bool = False,
+              flatten_static_instances: bool = True,
+              flatten_budget: int = 4_000_000) -> FlatScene:
         if use_bvh:
             raise NotImplementedError(
                 "SBVH treelet chunking (use_bvh=True) is not ported yet")
         from ..accel.intersect import build_tri_table
-        from ..accel.traverse import build_pallas_tris, build_super_boxes
+        from ..accel.traverse import (
+            build_pallas_tris,
+            build_super_boxes,
+            extend_pallas_instanced,
+        )
         from ..spectrum.spectral import WL_HI, WL_LO, upsample_tabulate_host
 
         s = self.s
         if self.camera is None:
             self.set_camera_perspective(np.eye(4, dtype=np.float32), 1.0, 0.52)
-        if not self.positions:
+        if not self.positions and not self._blas:
             raise ValueError("scene has no geometry")
+        if self._cur_blas is not None:
+            raise ValueError("unterminated BLAS recording")
+        if self._blas and not self.instance_rows:
+            raise ValueError("BLAS recorded but no instances added")
 
-        positions = np.concatenate(self.positions)
-        normals = np.concatenate(self.normals)
-        tangents = np.concatenate(self.tangents)
-        uvs = np.concatenate(self.uvs)
-        tri_vidx = np.concatenate(self.tri_vidx)
-        tri_mat = np.concatenate(self.tri_mat)
-        tri_alpha = np.concatenate(self.tri_alpha)
-        tri_ntex = np.concatenate(self.tri_ntex)
+        # Local copies: build() never mutates the recorded lists.
+        static = {k: list(getattr(self, k)) for k in (
+            "positions", "normals", "tangents", "uvs", "tri_vidx", "tri_mat",
+            "tri_alpha", "tri_ntex")}
+        nverts = self._nverts
+        inst_rows = list(self.instance_rows)
+
+        # Static-instance flattening: instances whose shutter-begin and
+        # shutter-end transforms agree are baked into world-space static
+        # geometry, so they ride the static chunks instead of one worklist
+        # entry per instance; only animated instances stay instanced.
+        if flatten_static_instances and inst_rows:
+            n_flat = sum(
+                sum(t.shape[0] for t in self._blas[bid]["tri_vidx"])
+                for bid, m0, m1 in inst_rows if np.array_equal(m0, m1))
+            if n_flat <= flatten_budget:
+                blas_cat: dict[int, tuple] = {}
+                kept = []
+                for bid, m0, m1 in inst_rows:
+                    if not np.array_equal(m0, m1):
+                        kept.append((bid, m0, m1))
+                        continue
+                    if bid not in blas_cat:
+                        b = self._blas[bid]
+                        blas_cat[bid] = tuple(
+                            np.concatenate(b[k]) for k in (
+                                "positions", "normals", "tangents", "uvs",
+                                "tri_vidx", "tri_mat", "tri_alpha",
+                                "tri_ntex"))
+                    bp, bn, bt, bu, bv, bm, ba, bx = blas_cat[bid]
+                    lin = m0[:3, :3]
+                    p = bp @ lin.T + m0[:3, 3]
+                    nn = bn @ np.linalg.inv(lin)  # inverse transpose
+                    nn = nn / np.maximum(
+                        np.linalg.norm(nn, axis=-1, keepdims=True), 1e-20)
+                    tt = bt @ lin.T
+                    tt = tt / np.maximum(
+                        np.linalg.norm(tt, axis=-1, keepdims=True), 1e-20)
+                    static["positions"].append(p.astype(np.float32))
+                    static["normals"].append(nn.astype(np.float32))
+                    static["tangents"].append(tt.astype(np.float32))
+                    static["uvs"].append(bu)
+                    static["tri_vidx"].append(bv + nverts)
+                    static["tri_mat"].append(bm)
+                    static["tri_alpha"].append(ba)
+                    static["tri_ntex"].append(bx)
+                    nverts += p.shape[0]
+                inst_rows = kept
+
+        if not static["positions"]:
+            # Fully instanced scene: keep a degenerate, never-hit static
+            # triangle so the static prefix and its chunk table stay valid.
+            static["positions"].append(np.full((3, 3), 1e30, np.float32))
+            static["normals"].append(np.tile(np.float32([0, 1, 0]), (3, 1)))
+            static["tangents"].append(np.tile(np.float32([1, 0, 0]), (3, 1)))
+            static["uvs"].append(np.zeros((3, 2), np.float32))
+            static["tri_vidx"].append(
+                np.asarray([[0, 1, 2]], np.int32) + nverts)
+            static["tri_mat"].append(np.zeros((1,), np.int32))
+            static["tri_alpha"].append(np.full((1,), -1, np.int32))
+            static["tri_ntex"].append(np.full((1,), -1, np.int32))
+            nverts += 3
+        positions = np.concatenate(static["positions"])
+        normals = np.concatenate(static["normals"])
+        tangents = np.concatenate(static["tangents"])
+        uvs = np.concatenate(static["uvs"])
+        tri_vidx = np.concatenate(static["tri_vidx"])
+        tri_mat = np.concatenate(static["tri_mat"])
+        tri_alpha = np.concatenate(static["tri_alpha"])
+        tri_ntex = np.concatenate(static["tri_ntex"])
         n_static = tri_vidx.shape[0]
+
+        # BLAS geometry (local space) goes after the static prefix; the
+        # static chunk table covers [0, n_static) only. Skipped when
+        # flattening left no live instance.
+        blas_ranges: list[tuple[int, int]] = []
+        if self._blas and inst_rows:
+            voff = positions.shape[0]
+            toff = n_static
+            parts: dict[str, list] = {k: [] for k in static}
+            for b in self._blas:
+                bp = np.concatenate(b["positions"])
+                bt = np.concatenate(b["tri_vidx"])
+                parts["positions"].append(bp)
+                parts["tri_vidx"].append(bt + voff)
+                for k in ("normals", "tangents", "uvs", "tri_mat",
+                          "tri_alpha", "tri_ntex"):
+                    parts[k].append(np.concatenate(b[k]))
+                blas_ranges.append((toff, toff + bt.shape[0]))
+                voff += bp.shape[0]
+                toff += bt.shape[0]
+            positions = np.concatenate([positions, *parts["positions"]])
+            normals = np.concatenate([normals, *parts["normals"]])
+            tangents = np.concatenate([tangents, *parts["tangents"]])
+            uvs = np.concatenate([uvs, *parts["uvs"]])
+            tri_vidx = np.concatenate([tri_vidx, *parts["tri_vidx"]])
+            tri_mat = np.concatenate([tri_mat, *parts["tri_mat"]])
+            tri_alpha = np.concatenate([tri_alpha, *parts["tri_alpha"]])
+            tri_ntex = np.concatenate([tri_ntex, *parts["tri_ntex"]])
 
         geom = Geometry(
             positions=_t(positions), normals=_t(normals),
@@ -353,8 +498,22 @@ class SceneBuilder:
             map_offset=_t([t.map_offset for t in ftexs], np.float32),
         )
 
-        # Every emissive triangle is one light of importance 1.
-        emissive = emit_stex[tri_mat] >= 0
+        # Every emissive triangle of the static prefix is one light of
+        # importance 1. An emissive material in the instanced tail would be
+        # invisible to light sampling while its implicit hits were still
+        # MIS-weighted against a light pdf that is never realized: a silent
+        # energy bias, so it is refused.
+        emissive = emit_stex[tri_mat[:n_static]] >= 0
+        if tri_mat.shape[0] > n_static:
+            tail_emissive = emit_stex[tri_mat[n_static:]] >= 0
+            if tail_emissive.any():
+                bad = np.unique(tri_mat[n_static:][tail_emissive])
+                raise ValueError(
+                    f"emissive material(s) {bad.tolist()} are referenced by "
+                    "instanced/animated geometry; lights on instances are "
+                    "not samplable (the light table covers the static "
+                    "prefix only) and would render biased. Keep emissive "
+                    "subtrees static.")
         light_tris = np.nonzero(emissive)[0].astype(np.int32)
         n_area = len(light_tris)
         if n_area == 0:
@@ -368,14 +527,36 @@ class SceneBuilder:
                        dist=build_continuous_2d(torch.ones((4, 8))),
                        scale=torch.tensor(1.0, dtype=torch.float32))
 
-        # World bounding sphere of the static geometry.
-        verts = positions[tri_vidx.reshape(-1)]
+        instances = None
+        if inst_rows:
+            from ..accel.instances import build_instances
+
+            instances = build_instances(positions, tri_vidx, blas_ranges,
+                                        inst_rows)
+
+        # World bounding sphere: the static geometry (without the never-hit
+        # triangle at 1e30) plus the instances' motion bounds.
+        verts = positions[tri_vidx[:n_static].reshape(-1)]
         verts = verts[np.abs(verts).max(axis=1) < 1e29]
-        lo, hi = verts.min(axis=0), verts.max(axis=0)
+        bounds = []
+        if len(verts):
+            bounds.append((verts.min(axis=0), verts.max(axis=0)))
+        if instances is not None:
+            bounds.append((instances.inst_bmin.numpy().min(axis=0),
+                           instances.inst_bmax.numpy().max(axis=0)))
+        lo = np.min([b[0] for b in bounds], axis=0)
+        hi = np.max([b[1] for b in bounds], axis=0)
         center = 0.5 * (lo + hi)
         radius = float(np.linalg.norm(hi - center)) + 1e-3
 
-        pallas_tris = build_pallas_tris(geom)
+        # Chunk tables over the static prefix; with instances, the BLAS
+        # chunks and one entry per (instance, BLAS chunk) follow, so one
+        # traversal covers the whole two-level scene.
+        pallas_tris = build_pallas_tris(dataclasses.replace(
+            geom, tri_vidx=_t(tri_vidx[:n_static])))
+        if instances is not None:
+            pallas_tris = extend_pallas_instanced(
+                pallas_tris, positions, tri_vidx, blas_ranges, inst_rows)
         ntex_table = NormalTextures(
             kind=_t([0], np.int32), image_id=_t([-1], np.int32),
             step_width=_t([1.0], np.float32), reverse=_t([0.0], np.float32),
@@ -384,7 +565,8 @@ class SceneBuilder:
         return FlatScene(
             geometry=geom, materials=materials, stex=stex, ftex=ftex,
             lights=lights, env=env, camera=self.camera,
-            pallas_tris=pallas_tris, ntex=ntex_table, n_static=n_static,
+            pallas_tris=pallas_tris, ntex=ntex_table, instances=instances,
+            n_static=n_static,
             lobe_kinds_present=lobe_kinds_present,
             has_env=False, has_normal_map=False, has_alpha=False,
             world_center=_t(center),

@@ -2,6 +2,9 @@
 
 `cornell_box_spheres` mirrors TestScenes/Cornell_Box_Spheres.txt: walls, an
 area light, one metal and one glass sphere tessellated to triangles.
+`grass_field` is the RTC3-class instanced scene: one grass-blade BLAS
+instanced over a ground plane, a share of the blades swaying across the
+shutter.
 """
 from __future__ import annotations
 
@@ -130,3 +133,91 @@ def _finish_cornell_camera(b: SceneBuilder) -> None:
                 @ m3.mat_rotate_x(0.0563936).numpy())
     b.set_camera_perspective(to_world, aspect=4.0 / 3.0, fovy=0.4807705238,
                              lens_radius=0.025, img_dist=1.0, obj_dist=6.3)
+
+
+def _grass_blade(n_seg: int = 5, height: float = 0.35, width: float = 0.02):
+    """A tapered, slightly curved grass blade as a triangle strip (two
+    triangles per segment; the matte BSDF shades both sides)."""
+    pos, nrm, tan, uv, tris = [], [], [], [], []
+    for s in range(n_seg + 1):
+        h = s / n_seg
+        w = width * (1.0 - 0.85 * h)
+        bend = 0.12 * h * h
+        y = height * h
+        for x in (-w, w):
+            pos.append((x, y, bend))
+            nrm.append((0.0, 0.0, 1.0))
+            tan.append((1.0, 0.0, 0.0))
+            uv.append((0.5 + x / width * 0.5, h))
+    for s in range(n_seg):
+        a = 2 * s
+        tris.append((a, a + 1, a + 2))
+        tris.append((a + 1, a + 3, a + 2))
+    return (np.asarray(pos, np.float32), np.asarray(nrm, np.float32),
+            np.asarray(tan, np.float32), np.asarray(uv, np.float32),
+            np.asarray(tris, np.int32))
+
+
+def grass_field(n_side: int = 64, blade_segments: int = 5, seed: int = 7,
+                animated_fraction: float = 0.0, device=None) -> FlatScene:
+    """RTC3-class instanced scene as a FlatScene on `device` (default: the
+    CUDA device): n_side^2 instances of one grass-blade BLAS (2 *
+    blade_segments triangles) over a ground quad under an area 'sun', the
+    structure of TestScenes/RTC3.txt. `animated_fraction` gives that share
+    of the blades a small sway between the shutter's ends (motion blur);
+    the others are flattened into static geometry at build. Placements come
+    from numpy's RandomState(seed), draw for draw as the reference makes
+    them, so both packages place the same blades."""
+    dev = resolve_device(device)
+    rs = np.random.RandomState(seed)
+    b = SceneBuilder()
+    ground = b.add_matte(b.add_stex_const((0.25, 0.35, 0.12)))
+    blade_mat = b.add_matte(b.add_stex_const((0.2, 0.55, 0.1)))
+    half = n_side * 0.05
+    g = np.float32([[-half, 0, -half], [half, 0, -half],
+                    [half, 0, half], [-half, 0, half]])
+    nrm = np.tile(np.float32([0, 1, 0]), (4, 1))
+    tan = np.tile(np.float32([1, 0, 0]), (4, 1))
+    b.add_mesh(g, nrm, tan, np.zeros((4, 2), np.float32),
+               np.array([[0, 1, 2], [0, 2, 3]], np.int32), ground)
+    # The sun: a bright quad high above.
+    em = b.add_stex_const((40.0, 38.0, 30.0))
+    sun = b.add_emitter(b.add_matte(b.add_stex_const((0.5,) * 3)), em)
+    s = np.float32([[-2, 8, -2], [2, 8, -2], [2, 8, 2], [-2, 8, 2]])
+    b.add_mesh(s, np.tile(np.float32([0, -1, 0]), (4, 1)), tan,
+               np.zeros((4, 2), np.float32),
+               np.array([[0, 2, 1], [0, 3, 2]], np.int32), sun)
+
+    bid = b.begin_blas()
+    b.add_mesh(*_grass_blade(blade_segments), blade_mat)
+    b.end_blas()
+    step = 2.0 * half / n_side
+    for i in range(n_side):
+        for j in range(n_side):
+            x = -half + (i + 0.5 + rs.uniform(-0.3, 0.3)) * step
+            z = -half + (j + 0.5 + rs.uniform(-0.3, 0.3)) * step
+            ang = rs.uniform(0, 2 * np.pi)
+            ca, sa = np.cos(ang), np.sin(ang)
+            m = np.float32([
+                [ca, 0, sa, x],
+                [0, 1, 0, 0],
+                [-sa, 0, ca, z],
+                [0, 0, 0, 1],
+            ])
+            if rs.uniform() < animated_fraction:
+                sway = rs.uniform(-0.15, 0.15)
+                ca2, sa2 = np.cos(sway), np.sin(sway)
+                rz = np.float32([
+                    [ca2, -sa2, 0, 0], [sa2, ca2, 0, 0],
+                    [0, 0, 1, 0], [0, 0, 0, 1],
+                ])
+                b.add_instance(bid, m, (m @ rz).astype(np.float32))
+            else:
+                b.add_instance(bid, m)
+    # +z is forward in camera space; rotate_y(pi) looks toward -z world, as
+    # in the Cornell preset, with a slight downward tilt onto the field.
+    cam = (m3.mat_translate([0.0, 0.55 * half + 0.3, 1.35 * half + 0.6]).numpy()
+           @ m3.mat_rotate_y(np.pi).numpy()
+           @ m3.mat_rotate_x(0.35).numpy()).astype(np.float32)
+    b.set_camera_perspective(cam, 4.0 / 3.0, 0.9)
+    return b.build().to(dev)

@@ -186,36 +186,36 @@ class BVH:
 
 @dataclasses.dataclass
 class Instances:
-    tlas_min: Tensor
-    tlas_max: Tensor
-    tlas_left: Tensor
-    tlas_right: Tensor
-    tlas_prim: Tensor
-    inst_bmin: Tensor
-    inst_bmax: Tensor
-    blas_min: Tensor
-    blas_max: Tensor
-    blas_left: Tensor
-    blas_right: Tensor
-    blas_prim: Tensor
-    blas_root: Tensor
-    t0_T: Tensor
-    t0_R: Tensor
-    t0_S: Tensor
-    t1_T: Tensor
+    """Per-instance rows of an instanced / animated scene: the shutter-begin
+    and shutter-end TRS decomposition of each instance's world transform
+    and its motion bounds. Instanced triangles live at the tail of Geometry
+    in local space; `FlatScene.n_static` is where that tail begins.
+
+    The reference's TLAS / BLAS node arena (its lock-step two-level
+    traversal) has no counterpart here: the port's casts all go through
+    the chunk kernels."""
+
+    t0_T: Tensor             # (I, 3) translation at shutter begin
+    t0_R: Tensor             # (I, 4) rotation quaternion [x, y, z, w]
+    t0_S: Tensor             # (I, 3) scale
+    t1_T: Tensor             # ... at shutter end
     t1_R: Tensor
     t1_S: Tensor
+    inst_bmin: Tensor        # (I, 3) motion bounds
+    inst_bmax: Tensor
 
     @property
     def num(self) -> int:
-        return self.blas_root.shape[0]
+        return self.t0_T.shape[0]
 
 
 @dataclasses.dataclass
 class FlatScene:
     """The complete device-side scene. `pallas_tris` holds the traversal
-    kernels' chunk tables (accel/traverse.py PallasTris); `bvh`, `plucker`
-    and `instances` stay None until their slices are ported."""
+    kernels' chunk tables (accel/traverse.py PallasTris), over the static
+    triangles [0, n_static) and, for a scene with `instances`, the
+    (instance, chunk) entries of the local-space tail; `bvh` and `plucker`
+    stay None until their slices are ported."""
 
     geometry: Geometry
     materials: Materials

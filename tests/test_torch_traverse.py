@@ -142,9 +142,14 @@ def test_worklist_matches_reference(ref, scenes):
 
 
 def test_instanced_tables_are_refused(ref):
+    """The name dates from when the traversal refused `entry_inst >= 0`;
+    it now takes such a table. The same one-instance table, carried across,
+    goes through both casts and both traversal wrappers and matches the
+    reference's kernels (interpret mode) ray for ray."""
     from slr_tpu.scene.build import SceneBuilder
     from slr_tpu.scene.presets import uv_sphere
 
+    jnp = ref.jnp
     b = SceneBuilder()
     mat = b.add_matte(b.add_stex_const((0.5, 0.5, 0.5)))
     g = np.float32([[-3, 0, -3], [3, 0, -3], [3, 0, 3], [-3, 0, 3]])
@@ -158,18 +163,32 @@ def test_instanced_tables_are_refused(ref):
     m1 = m0.copy()
     m1[0, 3] = 1.0                                   # animated: stays instanced
     b.add_instance(bid, m0, m1)
-    port = from_reference(b.build(use_bvh=False))
+    rsc = b.build(use_bvh=False)
+    port = from_reference(rsc)
     pt = port.pallas_tris
     assert pt.instanced
-    o, d = (torch.as_tensor(x) for x in _rand_rays(64, seed=1))
-    with pytest.raises(NotImplementedError, match="instance"):
-        tv.intersect_pallas(port.geometry, pt, o, d)
-    with pytest.raises(NotImplementedError, match="instance"):
-        tv.anyhit_pallas(port.geometry, pt, o, d, tmax=1.0)
-    rays, wl, cnt, wtn, _ = tv.prepare_cast(pt, o, d, 1e-4, 1.0, None)
-    for fn in (tv.closest_hit, tv.any_hit):
-        with pytest.raises(NotImplementedError, match="instance"):
-            fn(rays, wl, wtn, cnt, pt)
+    o, d = _rand_rays(256, seed=1)
+    o *= 0.5
+    f = np.random.RandomState(2).uniform(0, 1, 256).astype(np.float32)
+    to, td, tf = (torch.as_tensor(x) for x in (o, d, f))
+    hit = tv.intersect_pallas(port.geometry, pt, to, td, f=tf,
+                              instances=port.instances)
+    k = ref.pi.intersect_pallas(rsc.geometry, rsc.pallas_tris, jnp.asarray(o),
+                                jnp.asarray(d), f=jnp.asarray(f),
+                                instances=rsc.instances, interpret=True)
+    _assert_hits_agree(hit.mask.numpy(), hit.tri.numpy(), hit.t.numpy(),
+                       *(np.asarray(x) for x in (k.mask, k.tri, k.t)))
+    np.testing.assert_array_equal(hit.inst.numpy(), np.asarray(k.inst))
+    assert bool((hit.inst >= 0).any()) and bool((hit.inst[hit.mask] < 0).any())
+    occ = tv.anyhit_pallas(port.geometry, pt, to, td, tmax=1.0, f=tf)
+    ko = ref.pi.anyhit_pallas(rsc.geometry, rsc.pallas_tris, jnp.asarray(o),
+                              jnp.asarray(d), tmax=1.0, f=jnp.asarray(f),
+                              interpret=True)
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(ko))
+    rays, wl, cnt, wtn, _ = tv.prepare_cast(pt, to, td, 1e-4, 1.0, None, f=tf)
+    best_t, best_idx, best_inst = tv.closest_hit(rays, wl, wtn, cnt, pt)
+    assert best_inst.dtype == torch.int32 and bool((best_inst >= 0).any())
+    assert tv.any_hit(rays, wl, wtn, cnt, pt).shape == best_t.shape
 
 
 def test_plain_versions_do_not_count_launches(scenes):
@@ -178,7 +197,7 @@ def test_plain_versions_do_not_count_launches(scenes):
     o, d = (torch.as_tensor(x) for x in _rand_rays(64, seed=2))
     tv.intersect_pallas(port.geometry, port.pallas_tris, o, d)
     tv.anyhit_pallas(port.geometry, port.pallas_tris, o, d, tmax=1.0)
-    assert tv.LAUNCHES == {"closest_hit": 0, "any_hit": 0}
+    assert tv.LAUNCHES == {"closest_hit": 0, "any_hit": 0, "xform_rays": 0}
 
 
 @pytest.mark.cuda
@@ -202,4 +221,4 @@ def test_cuda_kernels_match_plain_versions():
     rays, wl, cnt, wtn, _ = tv.prepare_cast(pt, o, d, 1e-4, 0.7, active)
     assert torch.equal(tv.any_hit(rays, wl, wtn, cnt, pt),
                        tv.any_hit_plain(rays, wl, cnt, pt))
-    assert tv.LAUNCHES == {"closest_hit": 1, "any_hit": 1}
+    assert tv.LAUNCHES == {"closest_hit": 1, "any_hit": 1, "xform_rays": 0}
