@@ -7,12 +7,15 @@ Phases; any failure raises and exits non-zero, and no phase's failure is
 caught:
 
 1. device: needs CUDA; prints the card's name and power limit.
-2. build: compiles the hand-written kernels of slr_tpu_torch/csrc with nvcc.
+2. build: compiles the hand-written kernels of slr_tpu_torch/csrc with nvcc
+   and prints each kernel's registers, spills, shared memory and resident
+   blocks per SM at the two launch shapes of the main paths.
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the port's own Cornell tables at the main path's 49,152 lanes (camera,
    in-box and shadow rays, with an active mask, in the main path's sorted
    lane order); times both with CUDA events and computes each kernel's
-   bound from this run's inputs.
+   bound from this run's inputs. The kernels also count the slot tests they
+   executed (`ran`) beside the ones their rays needed (`tests`).
 4. main path: the spectral Cornell box at 1024x768, spp 4, depth 100
    through `render_wavefront`; both launch counters must equal the
    iteration count (no alpha: one closest-hit and one any-hit cast each).
@@ -36,6 +39,7 @@ caught:
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import time
@@ -105,15 +109,46 @@ def phase_device() -> str:
     return card
 
 
+def kernel_label(ptxas_line: str) -> str:
+    """The kernel a ptxas 'Compiling entry function' line names, with the
+    traversal kernels' template arguments spelled out."""
+    m = re.search(r"(closest_hit_kernel|any_hit_kernel|xform_rays_kernel)"
+                  r"(?:ILb([01])ELb([01])E)?", ptxas_line)
+    if m is None:
+        return ""
+    if m.group(2) is None:
+        return m.group(1)
+    return (f"{m.group(1)}<instanced={m.group(2)}, counting={m.group(3)}>")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     cuda_build.build_library("traverse")
     log(f"[build] {time.perf_counter() - t0:.2f} s")
     for name, rec in cuda_build.BUILD_LOG.items():
-        usage = [ln.strip() for ln in rec["ptxas"].splitlines()
-                 if "Used" in ln or "spill" in ln]
-        log(f"[build] {name}: nvcc {rec['seconds']:.2f} s; "
-            + " | ".join(usage))
+        log(f"[build] {name}: nvcc {rec['seconds']:.2f} s")
+        kernel = ""
+        for ln in rec["ptxas"].splitlines():
+            if "Compiling entry function" in ln:
+                kernel = kernel_label(ln)
+            elif kernel and ("Used" in ln or "spill" in ln):
+                log(f"[build]   {kernel}: "
+                    + ln.replace("ptxas info    :", "").strip())
+        if re.search(r"[1-9]\d* bytes spill", rec["ptxas"]):
+            raise AssertionError("a kernel spills registers")
+    # What the launches of the two main paths get: static tables in blocks
+    # of 256 lanes (Cornell), instanced tables in blocks of 128 (grass).
+    for rb, instanced in ((tv.RB, False), (128, True)):
+        for kname, variants in tv.traverse_info(rb).items():
+            for counting in (False, True):
+                v = variants[(instanced, counting)]
+                log(f"[build] {kname}<instanced={int(instanced)}, counting="
+                    f"{int(counting)}> at {rb} lanes: {v['registers']} "
+                    f"registers, {v['local_bytes']} B stack frame, "
+                    f"{v['static_smem']} + {v['dynamic_smem']} B shared "
+                    f"memory, {v['blocks_per_sm']} resident blocks per SM")
+                if v["blocks_per_sm"] < 1:
+                    raise AssertionError(f"{kname} does not fit on an SM")
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +236,14 @@ def entries_per_block(pt, wl, cnt) -> tuple[float, float]:
     return (float((listed & ~inst).sum()) / nb, float(inst.sum()) / nb)
 
 
+def ran_text(ran, tests) -> str:
+    """The slot tests a kernel executed beside the ones its rays needed,
+    and the (ray, entry) pairs only the margin of its box test listed."""
+    n_ran, n_kept = (int(x) for x in ran.sum(0))
+    return (f"ran {n_ran} ({n_ran / max(int(tests.sum()), 1):.3f} of "
+            f"needed), pairs listed by the margin alone {n_kept}")
+
+
 def check_closest(label, pt, o, d, tmax, active, f=None):
     """Static tables: the bit-for-bit gate of the first slice. Instanced
     tables (`f` given): the tests/test_pallas.py criteria."""
@@ -208,8 +251,9 @@ def check_closest(label, pt, o, d, tmax, active, f=None):
                                             active, f=f)
     tests = torch.zeros(rays.shape[0], dtype=torch.int32, device=DEV)
     xforms = torch.zeros_like(tests)
+    ran = torch.zeros((rays.shape[0], 2), dtype=torch.int32, device=DEV)
     t_k, i_k, inst_k = tv.closest_hit(rays, wl, wtn, cnt, pt, tests=tests,
-                                      xforms=xforms)
+                                      xforms=xforms, ran=ran)
     t_p, i_p, inst_p = tv.closest_hit_plain(rays, wl, cnt, pt)
     torch.cuda.synchronize()
     # tests/test_pallas.py criteria: equal hit masks; the same (slot,
@@ -231,7 +275,8 @@ def check_closest(label, pt, o, d, tmax, active, f=None):
                        (t_k, i_k, inst_k), tests, xforms)
     e_st, e_in = entries_per_block(pt, wl, cnt)
     log(f"[kernel] closest_hit {label}: {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {bms:.4f} ms ({by}), tests {int(tests.sum())}, transforms "
+        f"bound {bms:.4f} ms ({by}), tests {int(tests.sum())}, "
+        f"{ran_text(ran, tests)}, transforms "
         f"{int(xforms.sum())}, entries/block {e_st:.2f} static + {e_in:.2f} "
         f"instanced (most {int(cnt.max())}), hit rays {int(h_p.sum())} "
         f"({int((inst_p >= 0).sum())} on instances), mask mismatches "
@@ -255,7 +300,9 @@ def check_any(label, pt, o, d, tmax, active, f=None):
                                             active, f=f)
     tests = torch.zeros(rays.shape[0], dtype=torch.int32, device=DEV)
     xforms = torch.zeros_like(tests)
-    occ_k = tv.any_hit(rays, wl, wtn, cnt, pt, tests=tests, xforms=xforms)
+    ran = torch.zeros((rays.shape[0], 2), dtype=torch.int32, device=DEV)
+    occ_k = tv.any_hit(rays, wl, wtn, cnt, pt, tests=tests, xforms=xforms,
+                       ran=ran)
     occ_p = tv.any_hit_plain(rays, wl, cnt, pt)
     torch.cuda.synchronize()
     err = float((occ_k - occ_p).abs().max())
@@ -267,7 +314,8 @@ def check_any(label, pt, o, d, tmax, active, f=None):
                        xforms)
     e_st, e_in = entries_per_block(pt, wl, cnt)
     log(f"[kernel] any_hit {label}: {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {bms:.4f} ms ({by}), tests {int(tests.sum())}, transforms "
+        f"bound {bms:.4f} ms ({by}), tests {int(tests.sum())}, "
+        f"{ran_text(ran, tests)}, transforms "
         f"{int(xforms.sum())}, entries/block {e_st:.2f} static + {e_in:.2f} "
         f"instanced (most {int(cnt.max())}), occluded {int(occ_p.sum())}, "
         f"mismatches {n_diff} of {occ_p.numel()}")
@@ -367,12 +415,11 @@ def field_points(n, rs, half):
                      rs.uniform(-half, half, n)], axis=1).astype(np.float32)
 
 
-def phase_grass_kernels(scene) -> dict:
-    """Phase 7: the instanced table. Camera rays, bounce rays from points
-    among the blades and shadow rays toward the sun quad, each with a
-    seeded shutter fraction, in the main path's sorted order."""
-    pt = scene.pallas_tris
-    rs = np.random.RandomState(1)
+def grass_ray_sets(scene, rs) -> dict:
+    """The grass phase's four casts, as (kernel, o, d, tmax, active, f):
+    camera rays, bounce rays from points among the blades and shadow rays
+    toward the sun quad, each with a seeded shutter fraction, in the main
+    path's sorted order."""
     half = GRASS["n_side"] * 0.05
     active = torch.as_tensor(rs.rand(LANES) < 0.8, device=DEV)
     everyone = torch.ones(LANES, dtype=torch.bool, device=DEV)
@@ -396,19 +443,32 @@ def phase_grass_kernels(scene) -> dict:
         scene, active, _cuda_tensor(src),
         _cuda_tensor((tgt - src) / dist[:, None]),
         _cuda_tensor(dist * (1.0 - 1e-3)), shutter())
+    return {"closest camera": ("closest_hit", o_c, d_c, float("inf"), None,
+                               f_c),
+            "closest bounce": ("closest_hit", o_b, d_b, float("inf"), act_b,
+                               f_b),
+            "any shadow": ("any_hit", o_s, d_s, tmax_s, act_s, f_s),
+            "any bounce": ("any_hit", o_b, d_b, 0.3, None, f_b)}
+
+
+def phase_grass_kernels(scene) -> dict:
+    """Phase 7: the instanced table."""
+    pt = scene.pallas_tris
+    rs = np.random.RandomState(1)
+    sets = grass_ray_sets(scene, rs)
     n_inst = int((pt.entry_inst >= 0).sum())
     log(f"[grass] tables: {pt.n_chunks} chunks of {pt.chunk}, "
         f"{pt.n_entries - n_inst} static + {n_inst} instanced entries, "
         f"{scene.instances.num} instances, {scene.geometry.num_tris} "
         f"triangles ({scene.n_static} static), {LANES} rays, "
         f"{-(-LANES // tv._auto_rb(pt))} blocks of {tv._auto_rb(pt)}")
+    _, o_c, d_c, _, _, f_c = sets["closest camera"]
+    _, o_b, d_b, _, act_b, f_b = sets["closest bounce"]
     out = {"xform_rays": check_xform(pt, o_c, d_c, f_c, rs)}
-    closest = [check_closest("grass camera", pt, o_c, d_c, float("inf"),
-                             None, f_c),
-               check_closest("grass bounce", pt, o_b, d_b, float("inf"),
-                             act_b, f_b)]
-    anyhit = [check_any("grass shadow", pt, o_s, d_s, tmax_s, act_s, f_s),
-              check_any("grass bounce", pt, o_b, d_b, 0.3, None, f_b)]
+    closest = [check_closest("grass camera", pt, *sets["closest camera"][1:]),
+               check_closest("grass bounce", pt, *sets["closest bounce"][1:])]
+    anyhit = [check_any("grass shadow", pt, *sets["any shadow"][1:]),
+              check_any("grass bounce", pt, *sets["any bounce"][1:])]
     out["closest_hit"] = dict(closest[1])
     out["any_hit"] = dict(anyhit[0])
     out["closest_hit"]["max_abs_err"] = max(c["max_abs_err"] for c in closest)

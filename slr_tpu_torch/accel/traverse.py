@@ -642,11 +642,14 @@ def _ptr(t: Tensor | None):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of csrc/traverse.cu: pointers, then sizes, then the stream.
+# The traversals take, after the stream, `ran` and the instanced flag.
 _SIGNATURES = {
-    "slr_closest_hit": [_P] * 15 + [_I] * 4 + [_P],
-    "slr_any_hit": [_P] * 13 + [_I] * 4 + [_P],
+    "slr_closest_hit": [_P] * 15 + [_I] * 4 + [_P, _P, _I],
+    "slr_any_hit": [_P] * 13 + [_I] * 4 + [_P, _P, _I],
     "slr_xform_rays": [_P] * 3 + [_I] * 2 + [_P],
+    "slr_traverse_info": [_I, _I, _P],
 }
+MAX_RB = 256   # lanes per kernel block, a multiple of 32
 
 
 def _library():
@@ -680,9 +683,13 @@ def _check_kernel_args(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
             (pt.inst_trs, torch.float32, (pt.inst_trs.shape[0], 24)),
             (pt.tri24, torch.float32, (pt.n_chunks, pt.chunk, KCOLS)),
             (pt.n_valid, torch.int32, (pt.n_chunks,))]
-    want += [(c, torch.int32, (nb,)) for c in counters if c is not None]
+    tests, xforms, ran = counters
+    want += [(c, torch.int32, (nb,)) for c in (tests, xforms)
+             if c is not None]
+    if ran is not None:
+        want.append((ran, torch.int32, (nb, 2)))
     _check_tensors(want, rays.device)
-    if rows != ROWS or rb % 32 or not 32 <= rb <= 1024:
+    if rows != ROWS or rb % 32 or not 32 <= rb <= MAX_RB:
         raise ValueError(f"ray block of {rb} lanes is not supported")
     if pt.chunk > MAX_CHUNK:
         raise ValueError(f"chunk width {pt.chunk} is not supported")
@@ -691,7 +698,7 @@ def _check_kernel_args(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
 
 def closest_hit(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
                 pt: PallasTris, tests: Tensor | None = None,
-                xforms: Tensor | None = None
+                xforms: Tensor | None = None, ran: Tensor | None = None
                 ) -> tuple[Tensor, Tensor, Tensor]:
     """Closest hit per packed ray over its block's worklist.
     Returns (best_t (NB, RB) f32, best_idx = chunk*C + slot int32,
@@ -700,21 +707,33 @@ def closest_hit(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
     ray-triangle tests each kernel block's rays need: those of live rays
     against the triangles of the chunks whose box they meet; `xforms`
     likewise the number of (ray, instanced entry) transforms among them.
+    `ran` (NB, 2) int32, if given, receives what the block executed: its
+    slot tests, and the (ray, entry) pairs that only the margin of the
+    per-ray box test listed.
 
     Replaces the TPU kernel of slr_tpu/accel/pallas_intersect.py
     `_run_kernel` (`_kernel_smallwl` / `_kernel` -> `_traverse_closest`).
     Its floor on an H100 is fp32 arithmetic (45 operations per ray-triangle
-    test; triangle rows come from shared memory, so DRAM bytes are small);
-    the kernel visits only the entries some ray of the block can still hit
-    closer. With one thread per ray it is latency-bound well above that
-    floor at the main path's lane count (see csrc/traverse.cu)."""
+    test; triangle rows come from shared memory, so DRAM bytes are small).
+    The first version (one thread per ray, every thread through all 128
+    slots of every chunk its block visited, two block votes and one
+    synchronous copy per entry) ran 5-30 times the needed tests at a few
+    warps per SM. This one lists, per entry, only the rays whose own box
+    test (widened by a small margin) meets it, spreads each listed ray's
+    valid slots over up to 32 sub-lanes so that the listed rays fill the
+    block, scans the worklist a group of entries at a time and copies each
+    visited chunk's valid rows with `cp.async` while the listed rays'
+    local lines are derived; tables without instances run a build without
+    the transform (see csrc/traverse.cu, and PERF.md for what each step
+    gave)."""
     if rays.device.type == "cpu":
         return closest_hit_plain(rays, wl, cnt, pt)
     if rays.device.type != "cuda":
         raise ValueError(f"closest_hit: unsupported device {rays.device}")
     from ..core.cuda_build import check
 
-    nb, rb, ne = _check_kernel_args(rays, wl, wtn, cnt, pt, (tests, xforms))
+    nb, rb, ne = _check_kernel_args(rays, wl, wtn, cnt, pt,
+                                    (tests, xforms, ran))
     lib = _library()
     best_t = torch.empty((nb, rb), dtype=torch.float32, device=rays.device)
     best_idx = torch.empty((nb, rb), dtype=torch.int32, device=rays.device)
@@ -724,7 +743,7 @@ def closest_hit(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
         _ptr(pt.entry_chunk), _ptr(pt.entry_inst), _ptr(pt.inst_trs),
         _ptr(pt.tri24), _ptr(best_t), _ptr(best_idx), _ptr(best_inst),
         _ptr(pt.n_valid), _ptr(tests), _ptr(xforms), nb, rb, ne, pt.chunk,
-        _stream(rays.device))
+        _stream(rays.device), _ptr(ran), int(pt.instanced))
     check(lib, code, "closest_hit launch")
     LAUNCHES["closest_hit"] += 1
     return best_t, best_idx, best_inst
@@ -732,33 +751,60 @@ def closest_hit(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
 
 def any_hit(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
             pt: PallasTris, tests: Tensor | None = None,
-            xforms: Tensor | None = None) -> Tensor:
+            xforms: Tensor | None = None, ran: Tensor | None = None
+            ) -> Tensor:
     """Occlusion per packed ray: 1 when some triangle has t in
-    [tmin, tmax]. Returns (NB, RB) int32; `tests` and `xforms` as in
-    `closest_hit`.
+    [tmin, tmax]. Returns (NB, RB) int32; `tests`, `xforms` and `ran` as in
+    `closest_hit` (tests up to a ray's first hit).
 
     Replaces the TPU kernel of slr_tpu/accel/pallas_intersect.py
     `_run_kernel_any` (`_kernel_any_smallwl` / `_kernel_any` ->
     `_traverse_any`). Its floor is fp32 arithmetic like closest_hit's (49
-    operations per test, divide-free); a block stops once its live rays
-    are all occluded."""
+    operations per test, divide-free). The design is closest_hit's: per-ray
+    listing, sub-lanes over a listed ray's slots (reduced by a ballot, the
+    ray leaving at its first hit) and group scans; since most shadow rays
+    end at their first hit, an entry's ray list is compacted once more
+    where that frees sub-lanes; a block stops once its live rays are all
+    occluded."""
     if rays.device.type == "cpu":
         return any_hit_plain(rays, wl, cnt, pt)
     if rays.device.type != "cuda":
         raise ValueError(f"any_hit: unsupported device {rays.device}")
     from ..core.cuda_build import check
 
-    nb, rb, ne = _check_kernel_args(rays, wl, wtn, cnt, pt, (tests, xforms))
+    nb, rb, ne = _check_kernel_args(rays, wl, wtn, cnt, pt,
+                                    (tests, xforms, ran))
     lib = _library()
     occ = torch.empty((nb, rb), dtype=torch.int32, device=rays.device)
     code = lib.slr_any_hit(
         _ptr(rays), _ptr(wl), _ptr(wtn), _ptr(cnt), _ptr(pt.boxes),
         _ptr(pt.entry_chunk), _ptr(pt.entry_inst), _ptr(pt.inst_trs),
         _ptr(pt.tri24), _ptr(occ), _ptr(pt.n_valid), _ptr(tests),
-        _ptr(xforms), nb, rb, ne, pt.chunk, _stream(rays.device))
+        _ptr(xforms), nb, rb, ne, pt.chunk, _stream(rays.device), _ptr(ran),
+        int(pt.instanced))
     check(lib, code, "any_hit launch")
     LAUNCHES["any_hit"] += 1
     return occ
+
+
+def traverse_info(rb: int, chunk: int = DEFAULT_CHUNK) -> dict:
+    """What the built traversal kernels use at a launch of `rb` lanes:
+    kernel name -> {(instanced, counting): dict(registers, static_smem,
+    local_bytes (spills), dynamic_smem, blocks_per_sm)}. Needs the card."""
+    from ..core.cuda_build import check
+
+    lib = _library()
+    out = (ctypes.c_int * 40)()
+    check(lib, lib.slr_traverse_info(rb, chunk, out), "traverse_info")
+    keys = ("registers", "static_smem", "local_bytes", "dynamic_smem",
+            "blocks_per_sm")
+    info = {}
+    for k, name in enumerate(("closest_hit_kernel", "any_hit_kernel")):
+        info[name] = {
+            (bool(v >> 1), bool(v & 1)):
+                dict(zip(keys, out[5 * (4 * k + v):5 * (4 * k + v) + 5]))
+            for v in range(4)}
+    return info
 
 
 def xform_rays(rays: Tensor, trs_rows: Tensor) -> Tensor:
@@ -769,8 +815,9 @@ def xform_rays(rays: Tensor, trs_rows: Tensor) -> Tensor:
     Replaces slr_tpu/accel/pallas_intersect.py `_xform_rays`, which the TPU
     kernels run on a ray block before the triangle tests of an instanced
     entry. Both traversal kernels call the same device function
-    (`xform_ray`, csrc/traverse.cu) per thread, with the local ray kept in
-    registers; this launch runs that function alone, so it can be held
+    (`xform_ray`, csrc/traverse.cu) once per ray listed for an instanced
+    entry, by the ray's owner thread, the local line kept in shared
+    memory; this launch runs that function alone, so it can be held
     against the plain version and timed. On its own it is bound by bytes
     (ray rows 0-8 and 12 read, 40 B, and 36 B written per ray, plus one
     96 B row per block, for 138 fp32 operations per ray)."""
@@ -783,7 +830,7 @@ def xform_rays(rays: Tensor, trs_rows: Tensor) -> Tensor:
     nb, rows, rb = rays.shape
     _check_tensors([(rays, torch.float32, (nb, ROWS, rb)),
                     (trs_rows, torch.float32, (nb, 24))], rays.device)
-    if rb % 32 or not 32 <= rb <= 1024:
+    if rb % 32 or not 32 <= rb <= MAX_RB:
         raise ValueError(f"ray block of {rb} lanes is not supported")
     lib = _library()
     out = torch.empty((nb, 9, rb), dtype=torch.float32, device=rays.device)
