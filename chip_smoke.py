@@ -10,12 +10,16 @@ caught:
 2. build: compiles the hand-written kernels of slr_tpu_torch/csrc with nvcc
    and prints each kernel's registers, spills, shared memory and resident
    blocks per SM at the two launch shapes of the main paths.
-3. kernels: each kernel against its plain PyTorch version on the card, on
-   the port's own Cornell tables at the main path's 49,152 lanes (camera,
-   in-box and shadow rays, with an active mask, in the main path's sorted
-   lane order); times both with CUDA events and computes each kernel's
-   bound from this run's inputs. The kernels also count the slot tests they
-   executed (`ran`) beside the ones their rays needed (`tests`).
+3. scene and kernels: the Cornell box is built twice, on SBVH treelet
+   chunk tables (the default, as the reference builds them) and on Morton
+   slices; `[scene]` prints the SBVH build's seconds, chunks, triangle
+   references and the chunks whose (chopped) box does not hold all their
+   triangles. Each kernel against its plain PyTorch version on the card, on
+   both tables, with the same ray sets at the main path's 49,152 lanes
+   (camera, in-box and shadow rays, with an active mask, in the main path's
+   sorted lane order); times both with CUDA events and computes each
+   kernel's bound from this run's inputs. The kernels also count the slot
+   tests they executed (`ran`) beside the ones their rays needed (`tests`).
 4. main path: the spectral Cornell box at 1024x768, spp 4, depth 100
    through `render_wavefront`; both launch counters must equal the
    iteration count (no alpha: one closest-hit and one any-hit cast each).
@@ -34,19 +38,34 @@ caught:
    count of the instance transforms they ran in that render must be above
    zero for each, and some primary hits must lie on instanced blades. Then
    its profile, and a smaller grass field at 64x48 on the card against
-   the CPU.
-9. prints {"kernels": [...]}, then, as the last line, the device line.
+   the CPU. The grass field runs on its SBVH tables; `[scene]` compares
+   them with its Morton build.
+9. cli: `python -m slr_tpu_torch`'s `main` in-process on
+   tests/parity_scenes/Cornell_Box_Parity.txt, spectral, at the file's
+   256x192 and depth 100 with 64 spp: the scene file through the DSL and
+   the SBVH build, seven progressive passes, bmp exports and checkpoints.
+   Both launch counters must equal the passes' summed iterations; the last
+   export, block-averaged 4x4 to 64x48, is held against
+   tests/goldens/ref_parity_1024spp.bmp with tests/test_parity.py's four
+   thresholds. Then the scene at 64x48 on the card against the CPU, and
+   the module entry point once as a program (64x48, 1 spp).
+10. prints {"kernels": [...]}, then, as the last line, the device line.
 """
 import json
+import logging
 import os
 import re
 import statistics
+import struct
 import subprocess
+import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from slr_tpu_torch.__main__ import main as cli_main
 from slr_tpu_torch.accel import traverse as tv
 from slr_tpu_torch.accel.intersect import RAY_EPSILON
 from slr_tpu_torch.camera.perspective import sample_camera_rays
@@ -54,6 +73,7 @@ from slr_tpu_torch.core import cuda_build
 from slr_tpu_torch.render.film import develop
 from slr_tpu_torch.render.pt import _ray_sort_key, scene_intersect
 from slr_tpu_torch.render.wavefront import DEFAULT_LANE_CAP, render_wavefront
+from slr_tpu_torch.scene.api import load_scene
 from slr_tpu_torch.scene.presets import cornell_box_spheres, grass_field
 from slr_tpu_torch.spectrum.rgb import luminance
 
@@ -67,6 +87,12 @@ DEV = "cuda"
 GRASS = dict(n_side=64, blade_segments=13, animated_fraction=0.25)
 GRASS_W, GRASS_H = 512, 384
 GRASS_CHECK = dict(n_side=16, blade_segments=5, animated_fraction=0.25)
+# The scene-file path: the parity scene at its own 256x192, as the CLI runs
+# it, against the reference renderer's 1024-spp golden image.
+ROOT = os.path.dirname(os.path.abspath(__file__))
+PARITY = os.path.join(ROOT, "tests", "parity_scenes", "Cornell_Box_Parity.txt")
+GOLDEN = os.path.join(ROOT, "tests", "goldens", "ref_parity_1024spp.bmp")
+CLI_SPP = 64
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
 PEAK_FP32 = 67e12
@@ -244,9 +270,18 @@ def ran_text(ran, tests) -> str:
             f"needed), pairs listed by the margin alone {n_kept}")
 
 
+def slot_triangles(pt, idx):
+    """Kernel slots -> triangle ids (-1 for a miss)."""
+    return torch.where(idx >= 0, pt.remap.long()[idx.clamp(min=0).long()],
+                       -1)
+
+
 def check_closest(label, pt, o, d, tmax, active, f=None):
-    """Static tables: the bit-for-bit gate of the first slice. Instanced
-    tables (`f` given): the tests/test_pallas.py criteria."""
+    """The tests/test_pallas.py criteria: equal hit masks; the same
+    (triangle, instance) or t within 1e-4 on more than 99.5% of the rays
+    hit. On SBVH tables a triangle can sit in two chunks, and the kernel,
+    which culls per ray, may find it through the other chunk: another slot,
+    the same triangle and t."""
     rays, wl, cnt, wtn, _ = tv.prepare_cast(pt, o, d, RAY_EPSILON, tmax,
                                             active, f=f)
     tests = torch.zeros(rays.shape[0], dtype=torch.int32, device=DEV)
@@ -261,12 +296,14 @@ def check_closest(label, pt, o, d, tmax, active, f=None):
     h_k, h_p = i_k >= 0, i_p >= 0
     n_mask = int((h_k != h_p).sum())
     both = h_k & h_p
-    same = ((i_k == i_p) & (inst_k == inst_p)) | (
+    tri_k, tri_p = slot_triangles(pt, i_k), slot_triangles(pt, i_p)
+    same = ((tri_k == tri_p) & (inst_k == inst_p)) | (
         (t_k - t_p).abs() <= 1e-4 * torch.clamp(t_p.abs(), min=1.0))
     share = float(same[both].float().mean()) if bool(both.any()) else 1.0
     err = float((t_k - t_p)[h_k == h_p].abs().max())
     n_t = int((t_k != t_p).sum())
     n_idx = int((i_k != i_p).sum())
+    n_tri = int((tri_k != tri_p).sum())
     n_inst = int((inst_k != inst_p).sum())
     ms = median_ms(lambda: tv.closest_hit(rays, wl, wtn, cnt, pt))
     plain = median_ms(lambda: tv.closest_hit_plain(rays, wl, cnt, pt),
@@ -281,8 +318,8 @@ def check_closest(label, pt, o, d, tmax, active, f=None):
         f"instanced (most {int(cnt.max())}), hit rays {int(h_p.sum())} "
         f"({int((inst_p >= 0).sum())} on instances), mask mismatches "
         f"{n_mask}, same-or-close {share:.6f}, max |dt| {err:.3g}, rays "
-        f"whose t differs in any bit {n_t}, idx differ {n_idx}, inst differ "
-        f"{n_inst}")
+        f"whose t differs in any bit {n_t}, slots differ {n_idx}, triangles "
+        f"differ {n_tri}, inst differ {n_inst}")
     bad = n_mask or share <= 0.995
     if f is None:
         bad = bad or not bool((inst_k == -1).all())
@@ -390,23 +427,104 @@ def cornell_ray_sets(scene) -> dict:
             "any in-box": ("any_hit", o_b, d_b, 0.7, None)}
 
 
-def phase_kernels(scene) -> dict:
-    pt = scene.pallas_tris
+def phase_kernels(scene, morton) -> dict:
+    """Both kernels on the Cornell box's SBVH tables (the main path's) and
+    on its Morton tables, with the same four ray sets."""
     sets = cornell_ray_sets(scene)
-    log(f"[kernel] tables: {pt.n_chunks} chunks of {pt.chunk}, "
-        f"{scene.geometry.num_tris} triangles, {LANES} rays, "
-        f"{-(-LANES // tv._auto_rb(pt))} blocks of {tv._auto_rb(pt)}")
-    closest = [check_closest("camera", pt, *sets["closest camera"][1:]),
-               check_closest("in-box", pt, *sets["closest in-box"][1:])]
-    anyhit = [check_any("shadow", pt, *sets["any shadow"][1:]),
-              check_any("in-box", pt, *sets["any in-box"][1:])]
-    # The main path's casts are mostly bounce and shadow rays: the in-box
-    # closest-hit and the shadow any-hit sets give the reported times.
-    out = {"closest_hit": dict(closest[1]), "any_hit": dict(anyhit[0])}
-    out["closest_hit"]["max_abs_err"] = max(c["max_abs_err"]
-                                            for c in closest)
-    out["any_hit"]["max_abs_err"] = max(a["max_abs_err"] for a in anyhit)
+    out = {}
+    for tag, sc in (("SBVH", scene), ("Morton", morton)):
+        pt = sc.pallas_tris
+        log(f"[kernel] {tag} tables: {pt.n_chunks} chunks of {pt.chunk}, "
+            f"{sc.geometry.num_tris} triangles, {LANES} rays, "
+            f"{-(-LANES // tv._auto_rb(pt))} blocks of {tv._auto_rb(pt)}")
+        closest = [check_closest(f"{tag} camera", pt,
+                                 *sets["closest camera"][1:]),
+                   check_closest(f"{tag} in-box", pt,
+                                 *sets["closest in-box"][1:])]
+        anyhit = [check_any(f"{tag} shadow", pt, *sets["any shadow"][1:]),
+                  check_any(f"{tag} in-box", pt, *sets["any in-box"][1:])]
+        # The main path's casts are mostly bounce and shadow rays: the
+        # in-box closest-hit and the shadow any-hit sets give the times.
+        res = {"closest_hit": dict(closest[1]), "any_hit": dict(anyhit[0])}
+        res["closest_hit"]["max_abs_err"] = max(c["max_abs_err"]
+                                                for c in closest)
+        res["any_hit"]["max_abs_err"] = max(a["max_abs_err"] for a in anyhit)
+        out[tag] = res
     return out
+
+
+class BuildLog(logging.Handler):
+    """Collects the port's build log lines (`[build] sbvh ... seconds=`)."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def take(self) -> list:
+        lines, self.lines = self.lines, []
+        return lines
+
+
+def table_stats(scene) -> dict:
+    """Static chunks of a scene's tables: chunks, triangle references (a
+    triangle cut by SBVH spatial splits sits in several chunks) and the
+    chunks whose box does not hold every vertex of their triangles (SBVH
+    node boxes are chopped at the splits)."""
+    pt = scene.pallas_tris
+    static = pt.entry_inst < 0
+    ch = pt.entry_chunk[static].long()
+    slots = pt.remap.view(pt.n_chunks, pt.chunk)[ch].long()
+    valid = slots >= 0
+    tri = scene.geometry.tri_vidx.long()[slots.clamp(min=0)]
+    v = scene.geometry.positions[tri]                       # (NS, C, 3, 3)
+    box = pt.boxes[static]
+    inside = ((v >= box[:, None, None, 0:3]) & (v <= box[:, None, None, 3:6])
+              ).flatten(2).all(-1) | ~valid
+    return dict(chunks=int(ch.numel()), refs=int(valid.sum()),
+                tris=scene.n_static, chopped=int((~inside.all(1)).sum()))
+
+
+def phase_scene(name, make, ray_set) -> tuple:
+    """Builds a configuration with `make(use_bvh)` on SBVH tables (the
+    default) and on Morton tables; prints the SBVH build's seconds, both
+    tables' static chunks and the worklist entries per block, on each, of
+    the kernel phase's ray set `ray_set(scene)` -> (o, d, tmax, active,
+    f). Returns (SBVH scene, Morton scene)."""
+    build_log = BuildLog()
+    logger = logging.getLogger("slr_tpu_torch")
+    logger.addHandler(build_log)
+    logger.setLevel(logging.INFO)
+    t0 = time.perf_counter()
+    scene = make(True)
+    t_sbvh = time.perf_counter() - t0
+    lines = [ln for ln in build_log.take() if "sbvh" in ln]
+    t0 = time.perf_counter()
+    morton = make(False)
+    t_morton = time.perf_counter() - t0
+    logger.removeHandler(build_log)
+    log(f"[scene] {name}: built on {scene.device} in {t_sbvh:.2f} s with "
+        f"SBVH tables, {t_morton:.2f} s with Morton tables; "
+        f"{scene.geometry.num_tris} triangles, lobe kinds "
+        f"{scene.lobe_kinds_present}")
+    for ln in lines:
+        log(f"[scene] {name}: {ln}")
+    o, d, tmax, active, f = ray_set(scene)
+    for tag, sc in (("SBVH", scene), ("Morton", morton)):
+        st = table_stats(sc)
+        pt = sc.pallas_tris
+        rays, wl, cnt, _, _ = tv.prepare_cast(pt, o, d, RAY_EPSILON, tmax,
+                                              active, f=f)
+        e_st, e_in = entries_per_block(pt, wl, cnt)
+        log(f"[scene] {name} {tag}: {st['chunks']} static chunks, "
+            f"{st['refs']} references of {st['tris']} triangles "
+            f"({st['refs'] / st['tris']:.3f} each), boxes that do not hold "
+            f"all their triangles {st['chopped']}, {pt.n_entries} entries; "
+            f"worklist entries per block {e_st:.2f} static + {e_in:.2f} "
+            f"instanced (most {int(cnt.max())})")
+    return scene, morton
 
 
 def field_points(n, rs, half):
@@ -682,24 +800,146 @@ def phase_grass_main_path(scene) -> dict:
                 peak_gib=peak, work=work)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the scene-file path through the CLI
+# ---------------------------------------------------------------------------
+
+def read_bmp(path) -> np.ndarray:
+    """(H, W, 3) RGB float32 of an uncompressed 24-bit BMP (the reference's
+    and the CLI's format: BGR rows, bottom-up, padded to 4 bytes)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    off = struct.unpack_from("<I", data, 10)[0]
+    w, h, _, bpp = struct.unpack_from("<iiHH", data, 18)
+    if bpp != 24:
+        raise ValueError(f"{path}: {bpp}-bit BMP")
+    stride = (3 * w + 3) // 4 * 4
+    rows = np.frombuffer(data, np.uint8, stride * abs(h), off).reshape(
+        abs(h), stride)[:, :3 * w].reshape(abs(h), w, 3)[:, :, ::-1]
+    return (rows[::-1] if h > 0 else rows).astype(np.float32)
+
+
+def block_mean(img, f=4) -> np.ndarray:
+    h, w, c = img.shape
+    return img.reshape(h // f, f, w // f, f, c).mean(axis=(1, 3))
+
+
+def parity_gates(ours, gold) -> None:
+    """tests/test_parity.py's four thresholds on 64x48 block means (0-255
+    scale), each measured value printed beside its limit."""
+    d = np.abs(ours - gold)
+    gates = [("channel means, largest difference",
+              float(np.abs(ours.mean((0, 1)) - gold.mean((0, 1))).max()),
+              6.0),
+             ("block MAD", float(d.mean()), 18.0),
+             ("block MAD 95th percentile", float(np.percentile(d, 95)), 55.0)]
+    for ys in (slice(0, 24), slice(24, 48)):
+        for xs in (slice(0, 32), slice(32, 64)):
+            gates.append((f"quadrant rows {ys.start}-{ys.stop} columns "
+                          f"{xs.start}-{xs.stop} means, largest difference",
+                          float(np.abs(ours[ys, xs].mean((0, 1))
+                                       - gold[ys, xs].mean((0, 1))).max()),
+                          9.0))
+    for name, value, limit in gates:
+        log(f"[cli] golden gate: {name} {value:.4f} < {limit}: "
+            f"{'pass' if value < limit else 'FAIL'}")
+    failed = [g for g in gates if not g[1] < g[2]]
+    if failed:
+        raise AssertionError(f"the parity render fails the golden gates: "
+                             f"{failed}")
+
+
+def phase_cli(tmp) -> dict:
+    """The CLI's main in-process on the parity scene at its own size."""
+    out = os.path.join(tmp, "cli")
+    build_log = BuildLog()
+    logger = logging.getLogger("slr_tpu_torch")
+    logger.addHandler(build_log)
+    logger.setLevel(logging.INFO)
+    torch.cuda.synchronize()
+    tv.reset_launches()
+    tv.track_work(DEV)
+    res = cli_main([PARITY, "--spectral", "--spp", str(CLI_SPP), "--format",
+                    "bmp", "--out", out])
+    torch.cuda.synchronize()
+    launches = dict(tv.LAUNCHES)
+    work = dict(zip(("closest_hit_tests", "closest_hit_transforms",
+                     "any_hit_tests", "any_hit_transforms"),
+                    tv.WORK.tolist()))
+    tv.track_work(None)
+    logger.removeHandler(build_log)
+    sbvh = [ln for ln in build_log.lines if "sbvh" in ln]
+    w, h, lanes = res["width"], res["height"], res["lanes"]
+    iters = sum(p[2] for p in res["passes"])
+    secs = sum(p[1] for p in res["passes"])
+    ksps = w * h * res["spp"] / secs / 1e3
+    mrays = 2 * lanes * iters / secs / 1e6
+    log(f"[cli] {os.path.relpath(PARITY, ROOT)}: scene load "
+        f"{res['load_seconds']:.3f} s (DSL, flatten, SBVH and chunk tables; "
+        f"{'; '.join(sbvh)})")
+    for spp, sec, it in res["passes"]:
+        log(f"[cli]   pass of {spp} spp: {sec:.3f} s, {it} iterations")
+    log(f"[cli] {w}x{h} spp {res['spp']} depth 100 spectral: {secs:.3f} s "
+        f"in {len(res['passes'])} passes, {ksps:.1f} ksamples/s, actual "
+        f"{mrays:.2f} Mrays/s (2 x {lanes} lanes x {iters} iterations), "
+        f"launches {launches}, work the kernels counted {work}")
+    names = sorted(os.listdir(out))
+    want = [f"{k:03d}.bmp" for k in range(len(res["passes"]))] + \
+        ["checkpoint.npz"]
+    if names != sorted(want) or res["spp"] != CLI_SPP:
+        raise AssertionError(f"CLI exports {names}, expected {want}")
+    if launches != {"closest_hit": iters, "any_hit": iters, "xform_rays": 0}:
+        raise AssertionError(f"launch counts {launches} != {iters} summed "
+                             f"iterations for each traversal kernel")
+    ours = read_bmp(os.path.join(out, want[-2]))
+    if ours.shape != (h, w, 3):
+        raise AssertionError(f"export of shape {ours.shape}")
+    log(ascii_view(torch.as_tensor(ours / 255.0, device=DEV)))
+    parity_gates(block_mean(ours), block_mean(read_bmp(GOLDEN)))
+    return dict(seconds=secs, iterations=iters, launches=launches,
+                work=work, ksamples_per_s=ksps, mrays_per_s=mrays,
+                load_seconds=res["load_seconds"])
+
+
+def phase_cli_module(tmp) -> None:
+    """`python -m slr_tpu_torch` as a program, once, at 64x48 and 1 spp."""
+    out = os.path.join(tmp, "module")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "slr_tpu_torch", PARITY, "--spectral",
+         "--width", "64", "--height", "48", "--spp", "1", "--out", out],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    for ln in proc.stdout.splitlines():
+        log(f"[cli module]   {ln}")
+    if proc.returncode != 0 or not os.path.exists(
+            os.path.join(out, "000.png")):
+        raise AssertionError(f"python -m slr_tpu_torch failed "
+                             f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+    log(f"[cli module] python -m slr_tpu_torch: exit 0 in {secs:.2f} s, "
+        f"wrote {sorted(os.listdir(out))}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_device()
     phase_build()
-    t0 = time.perf_counter()
-    scene = cornell_box_spheres(spectral=True)
-    log(f"[scene] spectral Cornell box built on {scene.device} in "
-        f"{time.perf_counter() - t0:.2f} s: {scene.geometry.num_tris} "
-        f"triangles, lobe kinds {scene.lobe_kinds_present}")
-    timings = phase_kernels(scene)
+    scene, morton = phase_scene(
+        "spectral Cornell box",
+        lambda bvh: cornell_box_spheres(spectral=True, use_bvh=bvh),
+        lambda sc: cornell_ray_sets(sc)["closest in-box"][1:] + (None,))
+    timings = phase_kernels(scene, morton)
+    del morton
     main_path = phase_main_path(scene)
     phase_profile(scene)
     phase_cross_check(scene, main_path["mean"])
 
-    t0 = time.perf_counter()
-    grass = grass_field(**GRASS)
-    log(f"[scene] grass field built on {grass.device} in "
-        f"{time.perf_counter() - t0:.2f} s")
+    grass, morton = phase_scene(
+        "grass field", lambda bvh: grass_field(**GRASS, use_bvh=bvh),
+        lambda sc: grass_ray_sets(sc, np.random.RandomState(1))[
+            "closest bounce"][1:])
+    del morton
     g_timings = phase_grass_kernels(grass)
     g_main = phase_grass_main_path(grass)
     wl_share = (2 * g_timings["prepare_cast_ms"] * g_main["iterations"] / 1e3
@@ -709,17 +949,27 @@ def main() -> None:
         f"render's wall time")
     phase_profile(grass, "grass profile")
     phase_cross_check(grass_field(**GRASS_CHECK), None, "grass check")
+    del grass
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = phase_cli(tmp)
+        parity, _, _ = load_scene(PARITY, spectral=True)
+        phase_cross_check(parity, None, "cli check")
+        phase_cli_module(tmp)
 
     kernels = []
     for name in ("closest_hit", "any_hit"):
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE,
             replaces=REPLACES[name], launches=main_path["launches"][name],
-            library_ms=None, **timings[name],
+            library_ms=None, **timings["SBVH"][name],
+            morton=dict(timings["Morton"][name]),
             grass=dict(launches=g_main["launches"][name],
                        tests=g_main["work"][name + "_tests"],
                        transforms=g_main["work"][name + "_transforms"],
-                       **g_timings[name])))
+                       **g_timings[name]),
+            cli=dict(launches=cli["launches"][name],
+                     tests=cli["work"][name + "_tests"])))
     # The instance transform: on the main paths it runs as a device function
     # of the two kernels above, whose counted transforms show it; launched
     # on its own (never by a cast) it is held against its plain version.
@@ -733,7 +983,7 @@ def main() -> None:
             + g_main["work"]["any_hit_transforms"]),
         library_ms=None, **g_timings["xform_rays"]))
     if not all(k["launches"] > 0 and k["grass"]["launches"] > 0
-               for k in kernels[:2]):
+               and k["cli"]["launches"] > 0 for k in kernels[:2]):
         raise AssertionError("a kernel of the main paths was never launched")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,9 @@
 slr_tpu/accel/pallas_intersect.py).
 
 The chunk tables keep the reference's layout (`PallasTris`, built on the
-host), so the two packages' tables compare leaf by leaf. The casts follow
+host), so the two packages' tables compare leaf by leaf: treelets cut from
+the scene's SBVH (`_bvh_chunk_order`), whose boxes are the subtrees' node
+boxes, or Morton slices. The casts follow
 the reference's wrappers `intersect_pallas` / `anyhit_pallas`: per-ray
 ranges with inert inactive lanes, the scene-exit clamp of tmax, packed rays,
 per-block culled near-sorted worklists (built here with plain tensor ops),
@@ -272,24 +274,103 @@ def chunk_table_rows(pos: np.ndarray, tri: np.ndarray, chunk_tris: list,
     return tris, boxes, remap
 
 
+def _bvh_chunk_order(bvh, chunk: int) -> tuple[list, list]:
+    """Cut a BVH into chunks: the maximal subtrees of at most `chunk`
+    references (canonical treelets), in depth-first order, then consecutive
+    pieces merged while they fit one chunk and the union box's diagonal
+    stays within 1.5 times the larger piece's. Returns (triangle ids per
+    chunk, box per chunk): a chunk's box is its subtree's node box (the
+    union box after a merge), None for a bare leaf under an over-full node.
+
+    With SBVH spatial splits a triangle can sit in several chunks, and a
+    node box covers only the part of each triangle clipped to its side of
+    the splits: every point of a triangle lies in the box of some chunk
+    that holds it, while a chunk still tests its triangles whole."""
+    left = np.asarray(bvh.node_left)
+    right = np.asarray(bvh.node_right)
+    prim_order = np.asarray(bvh.prim_order)
+    n_nodes = len(left)
+
+    # References under each node; children are allocated after their
+    # parent, so a reverse sweep sees children first.
+    count = np.zeros(n_nodes, np.int64)
+    for nid in range(n_nodes - 1, -1, -1):
+        lc, rc = left[nid], right[nid]
+        count[nid] = (1 if lc < 0 else count[lc]) + (1 if rc < 0 else count[rc])
+
+    def collect(ptr) -> list[int]:
+        out: list[int] = []
+        st = [ptr]
+        while st:
+            p = st.pop()
+            if p < 0:
+                out.append(-p - 1)
+            else:
+                st.append(right[p])
+                st.append(left[p])
+        return out
+
+    nmin = np.asarray(bvh.node_min)
+    nmax = np.asarray(bvh.node_max)
+    chunks: list[np.ndarray] = []
+    boxes: list = []
+    stack = [0]
+    while stack:
+        ptr = stack.pop()
+        if ptr < 0:
+            chunks.append(prim_order[np.asarray([-ptr - 1], np.int64)])
+            boxes.append(None)
+        elif count[ptr] <= chunk:
+            chunks.append(prim_order[np.asarray(collect(ptr), np.int64)])
+            boxes.append(np.concatenate([nmin[ptr], nmax[ptr]]))
+        else:
+            stack.append(right[ptr])
+            stack.append(left[ptr])
+
+    merged_c: list[np.ndarray] = []
+    merged_b: list = []
+    for ids, box in zip(chunks, boxes):
+        if (box is not None and merged_c and merged_b[-1] is not None
+                and len(merged_c[-1]) + len(ids) <= chunk):
+            pb = merged_b[-1]
+            lo = np.minimum(pb[0:3], box[0:3])
+            hi = np.maximum(pb[3:6], box[3:6])
+            d_new = float(np.linalg.norm(hi - lo))
+            d_max = max(float(np.linalg.norm(pb[3:6] - pb[0:3])),
+                        float(np.linalg.norm(box[3:6] - box[0:3])))
+            if d_new <= 1.5 * max(d_max, 1e-12):
+                merged_c[-1] = np.concatenate([merged_c[-1], ids])
+                merged_b[-1] = np.concatenate([lo, hi])
+                continue
+        merged_c.append(ids)
+        merged_b.append(None if box is None else box.copy())
+    return merged_c, merged_b
+
+
 def build_pallas_tris(geom, chunk: int = DEFAULT_CHUNK, bvh=None) -> PallasTris:
-    """Morton-sliced chunk tables of `geom`'s triangles (host, numpy).
-    Treelet chunking from an SBVH is not ported yet."""
-    if bvh is not None:
-        raise NotImplementedError("SBVH treelet chunking is not ported yet")
+    """Chunk tables of `geom`'s triangles (host, numpy): treelets of `bvh`
+    (`_bvh_chunk_order`, boxes from its nodes) when given, else Morton
+    slices (boxes of the chunks' triangles)."""
     pos = np.asarray(geom.positions)
     tri = np.asarray(geom.tri_vidx)
     t = len(tri)
-    if t > 1:
+    chunk_boxes = None
+    if bvh is not None and t >= 2:
+        chunk_tris, chunk_boxes = _bvh_chunk_order(bvh, chunk)
+    elif t > 1:
         order = _morton_order((pos[tri[:, 0]] + pos[tri[:, 1]]
                                + pos[tri[:, 2]]) / 3.0)
+        chunk_tris = [order[i:i + chunk] for i in range(0, t, chunk)]
     else:
-        order = np.zeros((max(t, 1),), np.int32)
-    chunk_tris = [order[i:i + chunk] for i in range(0, max(t, 1), chunk)]
+        chunk_tris = [np.zeros((1,), np.int32)]
     tris, boxes6, remap = chunk_table_rows(pos, tri, chunk_tris, chunk)
     nc = len(chunk_tris)
     boxes = np.zeros((nc, 8), np.float32)
     boxes[:, 0:6] = boxes6
+    if chunk_boxes is not None:
+        for c, box in enumerate(chunk_boxes):
+            if box is not None and len(chunk_tris[c]):
+                boxes[c, 0:6] = box
     boxes[:, 6] = [1.0 if len(ids) else 0.0 for ids in chunk_tris]
     return PallasTris(
         tris=torch.from_numpy(tris),

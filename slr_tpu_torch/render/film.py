@@ -70,3 +70,33 @@ def save_bmp(path: str, img01) -> None:
                     0, 0)
     with open(path, "wb") as f:
         f.write(header + body)
+
+
+class CompensatedFilm:
+    """Kahan-compensated accumulation buffer (the reference's
+    CompensatedSum film): keeps the compensation term for very long
+    progressive runs, where per-texel sums span many orders of magnitude."""
+
+    def __init__(self, height: int, width: int, channels: int, device=None):
+        dev = resolve_device(device)
+        self.sum = torch.zeros((height, width, channels), dtype=torch.float32,
+                               device=dev)
+        self.comp = torch.zeros_like(self.sum)
+
+    def add(self, values):
+        """values: (H, W, C) one pass of contributions."""
+        self.sum, self.comp = kahan_add(self.sum, self.comp, values)
+        return self
+
+    @property
+    def value(self):
+        return self.sum + self.comp
+
+
+def kahan_add(total, comp, values):
+    """One Kahan step on tensors or arrays: returns (new total, new
+    compensation)."""
+    y = values - comp
+    t = total + y
+    new_comp = (t - total) - y
+    return t, new_comp

@@ -5,9 +5,11 @@ Ported so far: what the built-in Cornell and grass-field scenes use.
 Constant and tabulated spectra, matte/metal/glass/emitter materials,
 triangle meshes with baked static transforms, shared BLASes with static or
 animated instances (motion blur), and the perspective camera. Image /
-checker / voronoi textures, normal maps, the environment light and SBVH
-chunking (`use_bvh=True`) are not ported yet. All arrays are built with
-numpy on the host and become CPU tensors; `FlatScene.to` moves them.
+checker / voronoi textures, normal maps and the environment light are not
+ported yet. The chunk tables are cut from an SBVH over the static triangles
+(`use_bvh=True`, the default, as in the reference) or sliced in Morton
+order (`use_bvh=False`). All arrays are built with numpy on the host and
+become CPU tensors; `FlatScene.to` moves them.
 """
 from __future__ import annotations
 
@@ -285,12 +287,9 @@ class SceneBuilder:
         )
 
     # -- build --------------------------------------------------------------
-    def build(self, use_bvh: bool = False,
+    def build(self, use_bvh: bool = True,
               flatten_static_instances: bool = True,
               flatten_budget: int = 4_000_000) -> FlatScene:
-        if use_bvh:
-            raise NotImplementedError(
-                "SBVH treelet chunking (use_bvh=True) is not ported yet")
         from ..accel.intersect import build_tri_table
         from ..accel.traverse import (
             build_pallas_tris,
@@ -549,11 +548,17 @@ class SceneBuilder:
         center = 0.5 * (lo + hi)
         radius = float(np.linalg.norm(hi - center)) + 1e-3
 
-        # Chunk tables over the static prefix; with instances, the BLAS
-        # chunks and one entry per (instance, BLAS chunk) follow, so one
-        # traversal covers the whole two-level scene.
+        # Chunk tables over the static prefix, cut from its SBVH when
+        # `use_bvh`; with instances, the BLAS chunks and one entry per
+        # (instance, BLAS chunk) follow, so one traversal covers the whole
+        # two-level scene.
+        bvh = None
+        if use_bvh:
+            from ..accel.lbvh import build_bvh
+
+            bvh = build_bvh(positions, tri_vidx[:n_static])
         pallas_tris = build_pallas_tris(dataclasses.replace(
-            geom, tri_vidx=_t(tri_vidx[:n_static])))
+            geom, tri_vidx=_t(tri_vidx[:n_static])), bvh=bvh)
         if instances is not None:
             pallas_tris = extend_pallas_instanced(
                 pallas_tris, positions, tri_vidx, blas_ranges, inst_rows)
@@ -564,7 +569,7 @@ class SceneBuilder:
             map_offset=_t([(0.0, 0.0)], np.float32))
         return FlatScene(
             geometry=geom, materials=materials, stex=stex, ftex=ftex,
-            lights=lights, env=env, camera=self.camera,
+            lights=lights, env=env, camera=self.camera, bvh=bvh,
             pallas_tris=pallas_tris, ntex=ntex_table, instances=instances,
             n_static=n_static,
             lobe_kinds_present=lobe_kinds_present,

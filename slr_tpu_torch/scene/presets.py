@@ -59,7 +59,7 @@ def uv_sphere(center, radius, n_theta: int = 32, n_phi: int = 64):
 
 def cornell_box_spheres(light_scale: float = 30.0, sphere_res: int = 24,
                         metal: bool = True, glass: bool = True,
-                        use_bvh: bool = False, spectral: bool = False,
+                        use_bvh: bool = True, spectral: bool = False,
                         device=None) -> FlatScene:
     """TestScenes/Cornell_Box_Spheres.txt as a FlatScene on `device`
     (default: the CUDA device).
@@ -67,8 +67,8 @@ def cornell_box_spheres(light_scale: float = 30.0, sphere_res: int = 24,
     In spectral mode the materials match the scene file: a D65 emitter,
     measured aluminium eta/k and Air/BK7 glass. In RGB mode the emitter is
     an RGB white of `light_scale` and the IOR curves are RGB-averaged
-    constants. Chunk tables are Morton slices (`use_bvh=True`, the SBVH
-    treelet chunking, is not ported yet)."""
+    constants. Chunk tables are SBVH treelets (`use_bvh=True`, the
+    reference's default) or Morton slices (`use_bvh=False`)."""
     dev = resolve_device(device)
     b = SceneBuilder(spectral=spectral)
 
@@ -159,7 +159,8 @@ def _grass_blade(n_seg: int = 5, height: float = 0.35, width: float = 0.02):
 
 
 def grass_field(n_side: int = 64, blade_segments: int = 5, seed: int = 7,
-                animated_fraction: float = 0.0, device=None) -> FlatScene:
+                animated_fraction: float = 0.0, use_bvh: bool = True,
+                device=None) -> FlatScene:
     """RTC3-class instanced scene as a FlatScene on `device` (default: the
     CUDA device): n_side^2 instances of one grass-blade BLAS (2 *
     blade_segments triangles) over a ground quad under an area 'sun', the
@@ -167,7 +168,9 @@ def grass_field(n_side: int = 64, blade_segments: int = 5, seed: int = 7,
     of the blades a small sway between the shutter's ends (motion blur);
     the others are flattened into static geometry at build. Placements come
     from numpy's RandomState(seed), draw for draw as the reference makes
-    them, so both packages place the same blades."""
+    them, so both packages place the same blades. The static chunks are
+    SBVH treelets, as the reference builds them, or Morton slices
+    (`use_bvh=False`)."""
     dev = resolve_device(device)
     rs = np.random.RandomState(seed)
     b = SceneBuilder()
@@ -220,4 +223,4 @@ def grass_field(n_side: int = 64, blade_segments: int = 5, seed: int = 7,
            @ m3.mat_rotate_y(np.pi).numpy()
            @ m3.mat_rotate_x(0.35).numpy()).astype(np.float32)
     b.set_camera_perspective(cam, 4.0 / 3.0, 0.9)
-    return b.build().to(dev)
+    return b.build(use_bvh=use_bvh).to(dev)

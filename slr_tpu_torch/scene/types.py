@@ -214,8 +214,9 @@ class FlatScene:
     """The complete device-side scene. `pallas_tris` holds the traversal
     kernels' chunk tables (accel/traverse.py PallasTris), over the static
     triangles [0, n_static) and, for a scene with `instances`, the
-    (instance, chunk) entries of the local-space tail; `bvh` and `plucker`
-    stay None until their slices are ported."""
+    (instance, chunk) entries of the local-space tail; `bvh` is the static
+    triangles' SBVH the chunks were cut from (None for Morton tables), and
+    `plucker` stays None (the port has no Plücker-matmul path)."""
 
     geometry: Geometry
     materials: Materials

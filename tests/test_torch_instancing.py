@@ -20,6 +20,13 @@ from slr_tpu_torch.render import pt as port_pt
 from slr_tpu_torch.render.wavefront import render_wavefront
 from slr_tpu_torch.scene.bridge import from_reference
 from slr_tpu_torch.scene.build import SceneBuilder
+from slr_tpu_torch.scene.graph import (
+    MaterialDesc,
+    MeshNode,
+    SceneDesc,
+    Vertex,
+    flatten,
+)
 from slr_tpu_torch.scene.presets import grass_field, uv_sphere
 
 torch.set_num_threads(1)
@@ -86,13 +93,14 @@ def scenes(ref):
                      ref.presets.uv_sphere).build(use_bvh=False)
     p17 = _seventeen(SceneBuilder, uv_sphere).build(use_bvh=False)
     out["seventeen"] = (r17, p17, from_reference(r17))
-    # The reference preset builds with its default (SBVH chunks); the port
-    # has Morton chunks only, so its build is held to use_bvh=False here.
+    # Both presets build with SBVH chunks by default; the tests here hold
+    # both to Morton chunks (use_bvh=False; tests/test_torch_bvh.py covers
+    # the SBVH tables).
     build = ref.build.SceneBuilder.build
     with mock.patch.object(ref.build.SceneBuilder, "build",
                            lambda self: build(self, use_bvh=False)):
         rg = ref.presets.grass_field(**GRASS)
-    out["grass"] = (rg, grass_field(device="cpu", **GRASS),
+    out["grass"] = (rg, grass_field(device="cpu", use_bvh=False, **GRASS),
                     from_reference(rg))
     return out
 
@@ -237,9 +245,17 @@ def test_fully_instanced_scene_keeps_a_never_hit_static_triangle(ref):
 
 
 def test_build_refuses_what_it_cannot_render():
-    b = _seventeen(SceneBuilder, uv_sphere)
-    with pytest.raises(NotImplementedError):
-        b.build(use_bvh=True)
+    # A material whose lobes are not ported yet (ROADMAP Q3).
+    desc = SceneDesc()
+    mesh = MeshNode()
+    mesh.vertices = [Vertex(np.float32(p), np.float32([0, 0, 1]),
+                            np.float32([1, 0, 0]), np.zeros(2, np.float32))
+                     for p in ([0, 0, 0], [1, 0, 0], [0, 1, 0])]
+    mesh.add_group(MaterialDesc(kind="microfacet metal"), None, None,
+                   [(0, 1, 2)])
+    desc.root.add_child(mesh)
+    with pytest.raises(NotImplementedError, match="Q3"):
+        flatten(desc)
     e = SceneBuilder()
     lit = e.add_emitter(e.add_matte(e.add_stex_const((0.5,) * 3)),
                         e.add_stex_const((5.0,) * 3))

@@ -9,6 +9,13 @@ import torch
 
 from slr_tpu.scene.presets import cornell_box_spheres as ref_cornell
 from slr_tpu_torch.scene.bridge import from_reference
+from slr_tpu_torch.scene.graph import (
+    MaterialDesc,
+    MeshNode,
+    SceneDesc,
+    Vertex,
+    flatten,
+)
 from slr_tpu_torch.scene.presets import cornell_box_spheres
 
 torch.set_num_threads(1)
@@ -102,5 +109,14 @@ def test_entry_points_refuse_cpu_fallback():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         cornell_box_spheres(sphere_res=4)
-    with pytest.raises(NotImplementedError):
-        cornell_box_spheres(sphere_res=4, use_bvh=True, device="cpu")
+    # A material kind whose lobes are not ported yet (ROADMAP Q3).
+    desc = SceneDesc()
+    mesh = MeshNode()
+    mesh.vertices = [Vertex(np.float32(p), np.float32([0, 0, 1]),
+                            np.float32([1, 0, 0]), np.zeros(2, np.float32))
+                     for p in ([0, 0, 0], [1, 0, 0], [0, 1, 0])]
+    mesh.add_group(MaterialDesc(kind="microfacet metal"), None, None,
+                   [(0, 1, 2)])
+    desc.root.add_child(mesh)
+    with pytest.raises(NotImplementedError, match="Q3"):
+        flatten(desc)

@@ -42,7 +42,8 @@ def scenes(ref):
     ref_morton = ref.cornell(use_bvh=False)
     ref_sbvh = ref.cornell(use_bvh=True)
     return {
-        "morton": (ref_morton, cornell_box_spheres(device="cpu")),
+        "morton": (ref_morton, cornell_box_spheres(use_bvh=False,
+                                                   device="cpu")),
         "sbvh": (ref_sbvh, from_reference(ref_sbvh)),
     }
 
@@ -206,7 +207,7 @@ def test_cuda_kernels_match_plain_versions():
     (same arithmetic order and no FMA contraction, so bit-equal)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    pt = cornell_box_spheres(device="cuda").pallas_tris
+    pt = cornell_box_spheres(use_bvh=False, device="cuda").pallas_tris
     o, d = (torch.as_tensor(x, device="cuda")
             for x in _rand_rays(4096, seed=11))
     active = torch.as_tensor(np.random.RandomState(12).rand(4096) < 0.8,

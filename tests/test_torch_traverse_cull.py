@@ -157,7 +157,8 @@ def scenes(ref):
     with mock.patch.object(ref.build.SceneBuilder, "build",
                            lambda self: build(self, use_bvh=False)):
         r_grass = ref.presets.grass_field(**GRASS)
-    return {"cornell": (r_cornell, cornell_box_spheres(device="cpu")),
+    return {"cornell": (r_cornell, cornell_box_spheres(use_bvh=False,
+                                                       device="cpu")),
             "grass": (r_grass, from_reference(r_grass))}
 
 
@@ -389,7 +390,7 @@ def test_cuda_kernels_report_what_they_ran():
     (closest hit) and the margin lists few extra pairs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    pt = cornell_box_spheres(device="cuda").pallas_tris
+    pt = cornell_box_spheres(use_bvh=False, device="cuda").pallas_tris
     rs = np.random.RandomState(5)
     o = torch.as_tensor(rs.uniform(-0.9, 0.9, (4096, 3)).astype(np.float32),
                         device="cuda")
