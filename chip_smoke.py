@@ -49,7 +49,21 @@ caught:
    tests/goldens/ref_parity_1024spp.bmp with tests/test_parity.py's four
    thresholds. Then the scene at 64x48 on the card against the CPU, and
    the module entry point once as a program (64x48, 1 spp).
-10. prints {"kernels": [...]}, then, as the last line, the device line.
+10. shading scene: `write_shading_scene` writes a scene file with its
+    assets (an EXR sky, PNG image, normal map and alpha cutout, an .assbin
+    box) that uses every shading feature; `[shading kernels]` holds
+    closest_hit_kernel to its plain version on its camera rays, its alpha
+    recast set (per-ray tmin, sparse active mask) and its shadow rays (area
+    light and environment); `[shading]` renders it through the CLI's main,
+    spectral, 1024x768, depth 100, 4 spp: closest-hit launches must be 2 x
+    the iterations + the alpha recasts and any-hit launches 0; then 64x48
+    card against CPU.
+11. env: a diffuse sphere under a constant environment at 256x256, spp 16,
+    depth 16 (the analytic rho check, background equal to the sky, both
+    kernels launched once per iteration), then the equirectangular camera
+    at 256x128 (more than 90% of values above 0).
+12. prints {"kernels": [...]} (launches summed over every path), then, as
+    the last line, the device line.
 """
 import json
 import logging
@@ -67,14 +81,26 @@ import torch
 
 from slr_tpu_torch.__main__ import main as cli_main
 from slr_tpu_torch.accel import traverse as tv
-from slr_tpu_torch.accel.intersect import RAY_EPSILON
+from slr_tpu_torch.accel.intersect import RAY_EPSILON, sample_triangle_point
 from slr_tpu_torch.camera.perspective import sample_camera_rays
 from slr_tpu_torch.core import cuda_build
+from slr_tpu_torch.core.sampling import sample_continuous_2d
+from slr_tpu_torch.render import pt as tpt
 from slr_tpu_torch.render.film import develop
-from slr_tpu_torch.render.pt import _ray_sort_key, scene_intersect
-from slr_tpu_torch.render.wavefront import DEFAULT_LANE_CAP, render_wavefront
+from slr_tpu_torch.render.pt import _ray_sort_key, resolve_sp, scene_intersect
+from slr_tpu_torch.render.wavefront import (
+    DEFAULT_LANE_CAP,
+    _camera_ray,
+    render_wavefront,
+)
 from slr_tpu_torch.scene.api import load_scene
-from slr_tpu_torch.scene.presets import cornell_box_spheres, grass_field
+from slr_tpu_torch.scene.build import SceneBuilder
+from slr_tpu_torch.scene.presets import (
+    cornell_box_spheres,
+    env_sphere_scene,
+    grass_field,
+    uv_sphere,
+)
 from slr_tpu_torch.spectrum.rgb import luminance
 
 WIDTH, HEIGHT, SPP, DEPTH, SEED = 1024, 768, 4, 100, 1
@@ -93,6 +119,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PARITY = os.path.join(ROOT, "tests", "parity_scenes", "Cornell_Box_Parity.txt")
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "ref_parity_1024spp.bmp")
 CLI_SPP = 64
+# The shading scene (every lobe, texture and image kind, the environment,
+# alpha cutouts, a normal map, an .assbin model) through the CLI, spectral,
+# at 1024x768 and depth 100; spp cut to 4 for time.
+SHADE_W, SHADE_H, SHADE_SPP = 1024, 768, 4
+# The environment light alone: a diffuse sphere under a constant sky.
+ENV_SIZE, ENV_SPP, ENV_DEPTH, ENV_RHO = 256, 16, 16, 0.6
+EQUI_W, EQUI_H = 256, 128
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
 PEAK_FP32 = 67e12
@@ -116,6 +149,208 @@ REPLACES = {"closest_hit": "slr_tpu/accel/pallas_intersect.py:1127",
 
 def log(*args):
     print(*args, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The shading scene: a scene file that uses every shading feature
+# ---------------------------------------------------------------------------
+
+_BOX_WALLS = """
+function wall(p0, p1, p2, p3, n, t, groupMat) {
+    return createMesh((
+        (p0, n, t, (0, 0)), (p1, n, t, (1, 0)),
+        (p2, n, t, (1, 1)), (p3, n, t, (0, 1))),
+        (groupMat,));
+}
+function tris2(mat) { return (mat, ((0, 1, 2), (0, 2, 3))); }
+"""
+
+_SHADING_SCENE = """// The Cornell box of tests/parity_scenes/Cornell_Box_Parity.txt without
+// its ceiling, lit by its D65 area light and an EXR sky, holding every
+// shading feature: checker, image, Voronoi and ColorChecker spectra;
+// Oren-Nayar, Ward, Ashikhmin, microfacet metal and glass, mixed, summed
+// and inverse materials; a normal map, alpha cutouts and an .assbin model.
+setRenderer("method": "PT", ("samples": 4,));
+setRenderSettings("width": 1024, "height": 768);
+setEnvironment("sky.exr", 1.0);
+%(walls)s
+box = createNode();
+
+// floor: a checker board, normal-mapped
+floorTex = SpectrumTexture("checker board", (Spectrum(0.8, 0.8, 0.75),
+    Spectrum(0.2, 0.25, 0.3),
+    "mapping": Texture2DMapping("texcoord 2D", (0, 0, 6, 6))));
+floorNrm = NormalTexture(Image2D("floor_normal.png", "NormalTexture"),
+                         Texture2DMapping("texcoord 2D", (0, 0, 3, 3)));
+addChild(box, wall((-1.5, 0, 2.55), (1.5, 0, 2.55), (1.5, 0, -2.55),
+    (-1.5, 0, -2.55), (0, 1, 0), (1, 0, 0),
+    (createSurfaceMaterial("matte", (floorTex,)), floorNrm,
+     ((0, 1, 2), (0, 2, 3)))));
+
+// back wall: an sRGB PNG image
+backTex = SpectrumTexture(Image2D("back_wall.png"));
+addChild(box, wall((-1.5, 0, -2.55), (1.5, 0, -2.55), (1.5, 2.5, -2.55),
+    (-1.5, 2.5, -2.55), (0, 0, 1), (1, 0, 0),
+    tris2(createSurfaceMaterial("matte", (backTex,)))));
+
+// left wall: Voronoi cells
+vorTex = SpectrumTexture("voronoi", (0.25, 0.9));
+addChild(box, wall((-1.5, 0, 2.55), (-1.5, 0, -2.55), (-1.5, 2.5, -2.55),
+    (-1.5, 2.5, 2.55), (1, 0, 0), (0, 0, -1),
+    tris2(createSurfaceMaterial("matte", (vorTex,)))));
+
+// right wall: Oren-Nayar, sigma a FloatTexture
+addChild(box, wall((1.5, 0, -2.55), (1.5, 0, 2.55), (1.5, 2.5, 2.55),
+    (1.5, 2.5, -2.55), (-1, 0, 0), (0, 0, 1),
+    tris2(createSurfaceMaterial("matte",
+        (SpectrumTexture(Spectrum(0.25, 0.25, 0.75)), FloatTexture(0.6))))));
+
+// the parity scene's area light
+lightMat = createSurfaceMaterial("emitter", (
+    createSurfaceMaterial("matte", (SpectrumTexture(Spectrum(0.9, 0.9, 0.9)),)),
+    createEmitterSurfaceProperty("diffuse",
+        (SpectrumTexture(Spectrum("ID": "D65") * 4),))));
+addChild(box, wall((-0.5, 2.499, -0.5), (0.5, 2.499, -0.5),
+    (0.5, 2.499, 0.5), (-0.5, 2.499, 0.5), (0, -1, 0), (1, 0, 0),
+    tris2(lightMat)));
+
+// five spheres (the procedural 32x64 sphere model)
+wardMat = createSurfaceMaterial("Ward", (SpectrumTexture(Spectrum(0.7, 0.5, 0.3)),
+    FloatTexture(0.05), FloatTexture(0.3)));
+ashMat = createSurfaceMaterial("Ashikhmin", (
+    SpectrumTexture(Spectrum(0.2, 0.4, 0.6)),
+    SpectrumTexture(Spectrum(0.5, 0.5, 0.5)), FloatTexture(200), FloatTexture(20)));
+alEta = SpectrumTexture(Spectrum("ID": "Aluminium", 0));
+alK = SpectrumTexture(Spectrum("ID": "Aluminium", 1));
+roughMetal = createSurfaceMaterial("microfacet metal", (alEta, alK, FloatTexture(0.15)));
+roughGlass = createSurfaceMaterial("microfacet glass", (
+    SpectrumTexture(Spectrum("ID": "Air", 0)),
+    SpectrumTexture(Spectrum("ID": "Glass_BK7", 0)), FloatTexture(0.1)));
+mixMat = createSurfaceMaterial("mix", (
+    createSurfaceMaterial("matte", (SpectrumTexture(Spectrum(0.8, 0.3, 0.2)),)),
+    createSurfaceMaterial("metal", (SpectrumTexture(Spectrum("Reflectance", 1.0)),
+                                    alEta, alK)),
+    FloatTexture("voronoi", (0.12, 1.0))));
+function sphereAt(mat, x, z) {
+    function proc(name, attrs) { return mat; }
+    s = load3DModel("sphere", proc);
+    setTransform(s, translate(x, 0.32, z) * scale(0.32));
+    return s;
+}
+addChild(box, sphereAt(wardMat, -0.95, -1.7));
+addChild(box, sphereAt(ashMat, -0.15, -2.0));
+addChild(box, sphereAt(roughMetal, 0.7, -1.7));
+addChild(box, sphereAt(roughGlass, 0.45, -0.4));
+addChild(box, sphereAt(mixMat, -0.75, -0.6));
+
+// a two-sided leaf card, stacked three deep, cut out by an alpha PNG
+leafMat = createSurfaceMaterial("sum", (
+    createSurfaceMaterial("matte", (SpectrumTexture(Spectrum(0.3, 0.6, 0.2)),)),
+    createSurfaceMaterial("inverse", (createSurfaceMaterial("matte",
+        (SpectrumTexture(Spectrum(0.2, 0.4, 0.1)),)),))));
+leafAlpha = FloatTexture(Image2D("leaf_alpha.png", "AlphaTexture"));
+for (i = 0; i < 3; ++i) {
+    zc = 0.9 + 0.25 * i;
+    addChild(box, wall((-0.9, 0.35, zc), (0.1, 0.35, zc), (0.1, 1.55, zc),
+        (-0.9, 1.55, zc), (0, 0, 1), (1, 0, 0),
+        (leafMat, leafAlpha, ((0, 1, 2), (0, 2, 3)))));
+}
+
+// a box model from an .assbin dump
+function boxProc(name, attrs) {
+    return createSurfaceMaterial("matte",
+        (SpectrumTexture(Spectrum("ID": "ColorChecker", 14)),));
+}
+model = load3DModel("box.assbin", boxProc);
+setTransform(model, translate(0.95, 0.25, 0.5) * rotateY(0.5) * scale(0.25));
+addChild(box, model);
+
+addChild(root, box);
+cameraNode = createNode();
+addChild(cameraNode, createPerspectiveCamera("aspect": 4.0 / 3.0,
+    "fovY": 0.4807705238, "radius": 0.025, "imgDist": 1.0, "objDist": 6.3));
+setTransform(cameraNode, translate(0.0, 1.689714, 6.70284) *
+    rotateY(3.1415926536) * rotateX(0.0563936));
+addChild(root, cameraNode);
+"""
+
+
+def _unit_box_model():
+    """A [-1, 1]^3 cube with flat face normals, as an assimp scene."""
+    from slr_tpu_torch.utils.assbin import AssbinMesh, AssbinNode, AssbinScene
+
+    pos, nrm, tan, uv, faces = [], [], [], [], []
+    for axis in range(3):
+        for sign in (-1.0, 1.0):
+            n = np.zeros(3, np.float32)
+            n[axis] = sign
+            t = np.zeros(3, np.float32)
+            t[(axis + 1) % 3] = 1.0
+            b = np.cross(n, t)
+            base = len(pos)
+            for su, sv in ((-1, -1), (1, -1), (1, 1), (-1, 1)):
+                pos.append(n + su * t + sv * b)
+                nrm.append(n)
+                tan.append(t)
+                uv.append(((su + 1) / 2, (sv + 1) / 2))
+            faces += [(base, base + 1, base + 2), (base, base + 2, base + 3)]
+    mesh = AssbinMesh(positions=np.float32(pos), normals=np.float32(nrm),
+                      tangents=np.float32(tan), texcoords=np.float32(uv),
+                      faces=np.int32(faces), material_index=0)
+    return AssbinScene(root=AssbinNode("box", np.eye(4, dtype=np.float32),
+                                       mesh_indices=[0]),
+                       meshes=[mesh], material_names=["box"])
+
+
+def write_shading_scene(out_dir, tex=512, sky=(512, 1024), seed=0) -> str:
+    """Writes `shading.txt` and its assets into `out_dir`; returns the scene
+    file's path. The assets are made from `seed` with numpy and written by
+    the port's own writers: the sky (`sky` = (height, width), the
+    procedural placeholder sky's formula) as EXR, three `tex` x `tex` PNGs
+    (the back wall's image, the floor's normal map, the leaves' alpha with
+    exact zeros outside each leaf) and a cube as `.assbin`."""
+    from slr_tpu_torch.render.film import save_png
+    from slr_tpu_torch.scene.api import _placeholder_sky
+    from slr_tpu_torch.utils.assbin import write_assbin
+    from slr_tpu_torch.utils.exr import write_exr
+
+    os.makedirs(out_dir, exist_ok=True)
+    rs = np.random.RandomState(seed)
+    write_exr(os.path.join(out_dir, "sky.exr"), _placeholder_sky(*sky))
+    # Texel centres in [0, 1)^2, then a few seeded waves per image.
+    v, u = (np.mgrid[0:tex, 0:tex].astype(np.float32) + 0.5) / tex
+    phase = rs.uniform(0, 2 * np.pi, (3, 4)).astype(np.float32)
+    freq = rs.randint(1, 6, (3, 4)).astype(np.float32)
+    back = np.stack([0.5 + 0.25 * np.sin(2 * np.pi * (freq[c, 0] * u
+                                                       + freq[c, 1] * v)
+                                         + phase[c, 0])
+                     + 0.2 * np.cos(2 * np.pi * freq[c, 2] * u * v
+                                    + phase[c, 1])
+                     for c in range(3)], axis=-1)
+    save_png(os.path.join(out_dir, "back_wall.png"), np.clip(back, 0, 0.99))
+    # Bumps: the normal of the height field sin(k u) sin(k v).
+    k = 2 * np.pi * float(freq[0, 3] + 2)
+    nx = -0.3 * np.cos(k * u) * np.sin(k * v)
+    ny = -0.3 * np.sin(k * u) * np.cos(k * v)
+    n = np.stack([nx, ny, np.ones_like(nx)], axis=-1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    save_png(os.path.join(out_dir, "floor_normal.png"), (n + 1.0) * 0.5)
+    # Leaves: seeded ellipses on a 3 x 3 grid, alpha 1 inside, 0 outside.
+    alpha = np.zeros((tex, tex), np.float32)
+    for i in range(3):
+        for j in range(3):
+            cu, cv = (i + 0.5) / 3, (j + 0.5) / 3
+            ru, rv = rs.uniform(0.08, 0.15), rs.uniform(0.1, 0.16)
+            inside = ((u - cu) / ru) ** 2 + ((v - cv) / rv) ** 2 < 1.0
+            alpha[inside] = 1.0
+    leaf = np.stack([0.3 + 0.4 * u, 0.6 + 0.3 * v, 0.2 * np.ones_like(u),
+                     alpha], axis=-1)
+    save_png(os.path.join(out_dir, "leaf_alpha.png"), leaf)
+    write_assbin(os.path.join(out_dir, "box.assbin"), _unit_box_model())
+    path = os.path.join(out_dir, "shading.txt")
+    with open(path, "w") as f:
+        f.write(_SHADING_SCENE % {"walls": _BOX_WALLS})
+    return path
 
 
 def phase_device() -> str:
@@ -276,14 +511,14 @@ def slot_triangles(pt, idx):
                        -1)
 
 
-def check_closest(label, pt, o, d, tmax, active, f=None):
+def check_closest(label, pt, o, d, tmax, active, f=None, tmin=RAY_EPSILON):
     """The tests/test_pallas.py criteria: equal hit masks; the same
     (triangle, instance) or t within 1e-4 on more than 99.5% of the rays
     hit. On SBVH tables a triangle can sit in two chunks, and the kernel,
     which culls per ray, may find it through the other chunk: another slot,
-    the same triangle and t."""
-    rays, wl, cnt, wtn, _ = tv.prepare_cast(pt, o, d, RAY_EPSILON, tmax,
-                                            active, f=f)
+    the same triangle and t. `tmin` may be per ray (alpha recasts)."""
+    rays, wl, cnt, wtn, _ = tv.prepare_cast(pt, o, d, tmin, tmax, active,
+                                            f=f)
     tests = torch.zeros(rays.shape[0], dtype=torch.int32, device=DEV)
     xforms = torch.zeros_like(tests)
     ran = torch.zeros((rays.shape[0], 2), dtype=torch.int32, device=DEV)
@@ -653,11 +888,14 @@ def phase_main_path(scene) -> dict:
                 iterations=iters, lanes=lanes, mean=mean, launches=launches)
 
 
-def phase_profile(scene, tag="profile") -> None:
+def phase_profile(scene, tag="profile", depth=DEPTH) -> None:
     """Where the main path's time goes: one 256x192 (= 49,152 lanes) spp 1
     render under torch.profiler. Reports launches per iteration, the
-    device's busy share and the traversal kernels' share of device time."""
-    kw = dict(spp=1, seed=SEED, max_depth=DEPTH, return_iters=True)
+    device's busy share and the traversal kernels' share of device time.
+    The profiler's events take ~65 us each to read back on the host, so a
+    scene of many launches per iteration is profiled at a smaller depth
+    (fewer iterations, each with every lane busy)."""
+    kw = dict(spp=1, seed=SEED, max_depth=depth, return_iters=True)
     t0 = time.perf_counter()
     _, iters = render_wavefront(scene, 256, 192, **kw)
     torch.cuda.synchronize()
@@ -680,15 +918,16 @@ def phase_profile(scene, tag="profile") -> None:
         by_name[e.name] = (n + 1, us + e.self_device_time_total)
     syncs = sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize")
                 for e in prof.events())
-    log(f"[{tag}] 256x192 spp 1: {iters} iterations, {wall:.3f} s "
+    log(f"[{tag}] 256x192 spp 1 depth {depth}: {iters} iterations, "
+        f"{wall:.3f} s "
         f"({wall / iters * 1e3:.2f} ms per iteration) unprofiled, "
         f"{pwall:.3f} s profiled; {len(dev) / iters:.0f} device ops and "
         f"{syncs / iters:.1f} host syncs per iteration; device busy "
         f"{busy:.3f} s = {busy / wall:.3f} of the unprofiled wall time")
     for kname in ("closest_hit_kernel", "any_hit_kernel"):
-        n, us = next(v for k, v in by_name.items() if kname in k)
-        log(f"[{tag}] {kname}: {n} launches, {us / n / 1e3:.4f} ms each, "
-            f"{us / 1e6 / busy:.3f} of device time")
+        n, us = next((v for k, v in by_name.items() if kname in k), (0, 0.0))
+        log(f"[{tag}] {kname}: {n} launches, {us / max(n, 1) / 1e3:.4f} ms "
+            f"each, {us / 1e6 / busy:.3f} of device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     for name, (n, us) in top:
         log(f"[{tag}]   {us / 1e3:9.3f} ms in {n:6d} launches: {name[:90]}")
@@ -921,19 +1160,251 @@ def phase_cli_module(tmp) -> None:
         f"wrote {sorted(os.listdir(out))}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-13: the shading scene, its kernels, the environment light
+# ---------------------------------------------------------------------------
+
+def phase_shading_scene(tmp) -> tuple:
+    """Writes the shading scene at full size and loads it (spectral)."""
+    t0 = time.perf_counter()
+    path = write_shading_scene(os.path.join(tmp, "shading"))
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene, _, _ = load_scene(path, spectral=True)
+    t_load = time.perf_counter() - t0
+    st = table_stats(scene)
+    hw = scene.stex.image_hw.tolist()
+    log(f"[shading scene] written in {t_write:.2f} s, loaded in "
+        f"{t_load:.2f} s: {scene.geometry.num_tris} triangles, "
+        f"{st['chunks']} SBVH chunks ({st['refs']} references), "
+        f"{scene.materials.num} materials, lobe kinds "
+        f"{scene.lobe_kinds_present}, {len(hw)} images {hw}, environment "
+        f"importance map {tuple(scene.env.dist.shape)}, lights "
+        f"{scene.lights.num} (env share {float(scene.lights.env_prob):.4f}), "
+        f"alpha {scene.has_alpha}, normal map {scene.has_normal_map}")
+    if not (scene.has_alpha and scene.has_env and scene.has_normal_map
+            and len(scene.lobe_kinds_present) == 8 and len(hw) == 4):
+        raise AssertionError("the shading scene lacks a feature")
+    return path, scene
+
+
+def phase_shading(path, tmp) -> dict:
+    """The CLI's main in-process on the shading scene: spectral, 1024x768,
+    depth 100. In an alpha scene shadow rays go through closest hit too, so
+    closest-hit launches are 2 x iterations + the alpha recasts and any-hit
+    launches 0."""
+    out = os.path.join(tmp, "shading_out")
+    torch.cuda.synchronize()
+    tv.reset_launches()
+    tpt.reset_alpha_recasts()
+    tv.track_work(DEV)
+    res = cli_main([path, "--spectral", "--spp", str(SHADE_SPP), "--width",
+                    str(SHADE_W), "--height", str(SHADE_H), "--max-depth",
+                    str(DEPTH), "--format", "bmp", "--out", out])
+    torch.cuda.synchronize()
+    launches = dict(tv.LAUNCHES)
+    recasts = dict(tpt.ALPHA_RECASTS)
+    work = dict(zip(("closest_hit_tests", "closest_hit_transforms",
+                     "any_hit_tests", "any_hit_transforms"),
+                    tv.WORK.tolist()))
+    tv.track_work(None)
+    lanes = res["lanes"]
+    iters = sum(p[2] for p in res["passes"])
+    secs = sum(p[1] for p in res["passes"])
+    ksps = SHADE_W * SHADE_H * res["spp"] / secs / 1e3
+    mrays = 2 * lanes * iters / secs / 1e6
+    log(f"[shading] scene load {res['load_seconds']:.3f} s")
+    for spp, sec, it in res["passes"]:
+        log(f"[shading]   pass of {spp} spp: {sec:.3f} s, {it} iterations")
+    log(f"[shading] {SHADE_W}x{SHADE_H} spp {res['spp']} depth {DEPTH} "
+        f"spectral: {secs:.3f} s in {len(res['passes'])} passes, {iters} "
+        f"iterations ({secs / iters * 1e3:.2f} ms each), {ksps:.1f} "
+        f"ksamples/s, {mrays:.2f} Mrays/s (2 x {lanes} lanes x iterations), "
+        f"launches {launches}, alpha recasts {recasts['casts']} casts "
+        f"({recasts['casts'] / iters:.3f} per iteration) carrying "
+        f"{recasts['rays']} rays, work the kernels counted {work}")
+    names = sorted(os.listdir(out))
+    last = os.path.join(out, f"{len(res['passes']) - 1:03d}.bmp")
+    if not os.path.exists(last) or res["spp"] != SHADE_SPP:
+        raise AssertionError(f"shading exports {names}")
+    img = read_bmp(last)
+    log(ascii_view(torch.as_tensor(img / 255.0, device=DEV)))
+    want = {"closest_hit": 2 * iters + recasts["casts"], "any_hit": 0,
+            "xform_rays": 0}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want} "
+                             f"(2 x {iters} iterations + {recasts['casts']} "
+                             f"alpha recasts, no any hit)")
+    if not recasts["casts"] > 0:
+        raise AssertionError("no alpha recast in the shading render")
+    if img.shape != (SHADE_H, SHADE_W, 3) or not img.mean() > 5.0:
+        raise AssertionError(f"implausible shading export: shape "
+                             f"{img.shape}, mean {img.mean()}")
+    return dict(seconds=secs, iterations=iters, launches=launches,
+                recasts=recasts, work=work, ksamples_per_s=ksps,
+                mrays_per_s=mrays, load_seconds=res["load_seconds"])
+
+
+def shading_ray_sets(scene) -> dict:
+    """The shading phase's three closest-hit sets at the main path's lane
+    count, in its sorted order: camera rays; the recast set (the camera
+    rays whose first hit is an alpha-zero texel, re-cast from just beyond
+    it, only those rays active); shadow rays from the camera rays' hits,
+    half to points on the area light, half to directions drawn from the
+    environment's importance map (tmax 4 x the world radius)."""
+    rs = np.random.RandomState(3)
+    everyone = torch.ones(LANES, dtype=torch.bool, device=DEV)
+    o_c, d_c, _ = main_path_order(scene, everyone,
+                                  *camera_rays(scene, LANES, rs,
+                                               SHADE_W, SHADE_H))
+    hit = scene_intersect(scene, o_c, d_c)
+    cut = tpt._alpha_zero(scene, hit)
+    tmin_r = torch.where(cut, hit.t + RAY_EPSILON, RAY_EPSILON)
+    sp = resolve_sp(scene, hit, o_c, d_c)
+    u = [_cuda_tensor(rs.rand(LANES)) for _ in range(3)]
+    n_l = scene.lights.tri_idx.shape[0]
+    tri = scene.lights.tri_idx.long()[(u[0] * n_l).long().clamp(max=n_l - 1)]
+    lp = sample_triangle_point(scene.geometry, tri, u[1], u[2])
+    ex, ey, _ = sample_continuous_2d(scene.env.dist, u[1], u[2])
+    e_dir = tpt._env_direction(ex * 2 * np.pi, ey * np.pi)
+    to_env = torch.as_tensor(rs.rand(LANES) < 0.5, device=DEV)
+    delta = lp.p - sp.p
+    dist = torch.sqrt((delta * delta).sum(-1).clamp(min=1e-12))
+    d_s = torch.where(to_env[:, None], e_dir, delta / dist[:, None])
+    tmax_s = torch.where(to_env, 4.0 * scene.world_radius,
+                         dist * (1.0 - 1e-3))
+    o_s, d_s, tmax_s, act_s = main_path_order(scene, hit.mask, sp.p, d_s,
+                                              tmax_s)
+    return {"camera": (o_c, d_c, float("inf"), None, None, RAY_EPSILON),
+            "recast": (o_c, d_c, float("inf"), cut, None, tmin_r),
+            "shadow": (o_s, d_s, tmax_s, act_s, None, RAY_EPSILON)}
+
+
+def phase_shading_kernels(scene) -> dict:
+    """closest_hit_kernel against its plain version on the shading scene's
+    three sets; then the cost of one whole recast (ranges, worklists, the
+    kernel and the hit resolution) at the recast set."""
+    pt = scene.pallas_tris
+    sets = shading_ray_sets(scene)
+    n_cut = int(sets["recast"][3].sum())
+    log(f"[shading kernels] {pt.n_chunks} chunks of {pt.chunk}, {LANES} "
+        f"rays, {n_cut} of the camera rays stop on an alpha-zero texel")
+    if not n_cut:
+        raise AssertionError("no camera ray stops on an alpha-zero texel")
+    out = {name: check_closest(f"shading {name}", pt, *args)
+           for name, args in sets.items()}
+    o, d, tmax, cut, _, tmin_r = sets["recast"]
+    recast_ms = median_ms(lambda: scene_intersect(scene, o, d, tmin_r, tmax,
+                                                  active=cut), 10)
+    log(f"[shading kernels] one recast cast of {n_cut} active rays "
+        f"(prepare_cast + closest_hit_kernel + hit resolution): "
+        f"{recast_ms:.3f} ms")
+    out["recast_cast_ms"] = recast_ms
+    return out
+
+
+def equirect_scene():
+    """A diffuse sphere 3 units ahead under a constant sky, seen by the
+    equirectangular camera from the origin."""
+    b = SceneBuilder()
+    mat = b.add_matte(b.add_stex_const((0.5, 0.5, 0.5)))
+    b.add_mesh(*uv_sphere((0, 0, -3), 1.0, 8, 16), mat)
+    b.set_environment(b.add_stex_image(b.add_image(
+        np.ones((8, 16, 3), np.float32))), 1.0)
+    b.set_camera_equirect(np.eye(4, dtype=np.float32))
+    return b.build(use_bvh=False).to(DEV)
+
+
+def phase_env() -> dict:
+    """env_sphere_scene under a constant environment (L = 1) through the
+    perspective camera: a pixel's value is the mean over its samples of the
+    camera weight times the radiance, so background pixels must equal their
+    mean camera weight and sphere pixels average rho = 0.6 times it within
+    5% (L_out = rho L for a convex Lambert body). Both traversal kernels run
+    (no alpha). Then the equirectangular camera."""
+    scene = env_sphere_scene(reflectance=ENV_RHO)
+    w = h = ENV_SIZE
+    torch.cuda.synchronize()
+    tv.reset_launches()
+    t0 = time.perf_counter()
+    img, iters = render_wavefront(scene, w, h, spp=ENV_SPP, seed=SEED,
+                                  max_depth=ENV_DEPTH, return_iters=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(tv.LAUNCHES)
+    n_pix = w * h
+    pid = torch.arange(n_pix, device=DEV)
+    wsum = torch.zeros(n_pix, device=DEV)
+    nhit = torch.zeros(n_pix, device=DEV)
+    for sid in range(ENV_SPP):
+        rays = _camera_ray(scene, pid, torch.full_like(pid, sid), SEED, w, h)
+        wsum += rays.weight
+        for s0 in range(0, n_pix, LANES):
+            nhit[s0:s0 + LANES] += scene_intersect(
+                scene, rays.o[s0:s0 + LANES],
+                rays.d[s0:s0 + LANES]).mask.float()
+    wbar = (wsum / ENV_SPP).reshape(h, w)
+    lum = img.mean(-1)
+    bg = (nhit == 0).reshape(h, w)
+    on = (nhit == ENV_SPP).reshape(h, w)
+    bg_err = float(((lum - wbar).abs() / wbar)[bg].max())
+    rho = float((lum[on] / wbar[on]).mean())
+    log(f"[env] {w}x{h} spp {ENV_SPP} depth {ENV_DEPTH} sphere under a "
+        f"constant sky: {secs:.3f} s, {iters} iterations, launches "
+        f"{launches}; background pixels {int(bg.sum())}, largest relative "
+        f"difference from the environment {bg_err:.3g}; sphere pixels "
+        f"{int(on.sum())}, mean radiance / camera weight {rho:.5f} "
+        f"(rho {ENV_RHO})")
+    if launches != {"closest_hit": iters, "any_hit": iters, "xform_rays": 0}:
+        raise AssertionError(f"env launch counts {launches} != {iters} "
+                             f"iterations for each traversal kernel")
+    if not (bg.any() and on.any()) or bg_err > 1e-5:
+        raise AssertionError("env background pixels differ from the sky")
+    if abs(rho / ENV_RHO - 1.0) >= 0.05:
+        raise AssertionError(f"sphere radiance {rho} is not rho {ENV_RHO}")
+    env_launches = launches
+    # The equirectangular camera: sky nearly everywhere.
+    eq = equirect_scene()
+    tv.reset_launches()
+    img, it_eq = render_wavefront(eq, EQUI_W, EQUI_H, spp=4, seed=SEED,
+                                  max_depth=ENV_DEPTH, return_iters=True)
+    torch.cuda.synchronize()
+    lit = float((img > 0).float().mean())
+    log(f"[env] equirectangular camera {EQUI_W}x{EQUI_H} spp 4: {it_eq} "
+        f"iterations, launches {dict(tv.LAUNCHES)}, values above 0 {lit:.4f}")
+    if not (lit > 0.9 and bool(torch.isfinite(img).all())):
+        raise AssertionError(f"equirect render: only {lit} above 0")
+    return dict(seconds=secs, iterations=iters, launches={
+        k: env_launches[k] + tv.LAUNCHES[k] for k in env_launches},
+        rho=rho, background_err=bg_err)
+
+
+_LAP = [time.perf_counter()]
+
+
+def lap(label: str) -> None:
+    """Logs the seconds since the last lap."""
+    now = time.perf_counter()
+    log(f"[time] {label}: {now - _LAP[0]:.1f} s")
+    _LAP[0] = now
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_device()
     phase_build()
+    lap("device and build")
     scene, morton = phase_scene(
         "spectral Cornell box",
         lambda bvh: cornell_box_spheres(spectral=True, use_bvh=bvh),
         lambda sc: cornell_ray_sets(sc)["closest in-box"][1:] + (None,))
     timings = phase_kernels(scene, morton)
     del morton
+    lap("Cornell tables and kernels")
     main_path = phase_main_path(scene)
     phase_profile(scene)
     phase_cross_check(scene, main_path["mean"])
+    lap("Cornell main path, profile, check")
 
     grass, morton = phase_scene(
         "grass field", lambda bvh: grass_field(**GRASS, use_bvh=bvh),
@@ -941,6 +1412,7 @@ def main() -> None:
             "closest bounce"][1:])
     del morton
     g_timings = phase_grass_kernels(grass)
+    lap("grass tables and kernels")
     g_main = phase_grass_main_path(grass)
     wl_share = (2 * g_timings["prepare_cast_ms"] * g_main["iterations"] / 1e3
                 / g_main["seconds"])
@@ -950,18 +1422,39 @@ def main() -> None:
     phase_profile(grass, "grass profile")
     phase_cross_check(grass_field(**GRASS_CHECK), None, "grass check")
     del grass
+    lap("grass main path, profile, check")
 
     with tempfile.TemporaryDirectory() as tmp:
         cli = phase_cli(tmp)
         parity, _, _ = load_scene(PARITY, spectral=True)
         phase_cross_check(parity, None, "cli check")
         phase_cli_module(tmp)
+        del parity
+        lap("cli")
 
+        shade_path, shade = phase_shading_scene(tmp)
+        s_kernels = phase_shading_kernels(shade)
+        lap("shading scene and kernels")
+        shading = phase_shading(shade_path, tmp)
+        lap("shading")
+        phase_profile(shade, "shading profile", depth=4)
+        lap("shading profile")
+        phase_cross_check(shade, None, "shading check")
+        del shade
+        lap("shading check")
+    env = phase_env()
+    lap("env")
+
+    paths = {"cornell": main_path, "grass": g_main, "cli": cli,
+             "shading": shading, "env": env}
     kernels = []
     for name in ("closest_hit", "any_hit"):
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE,
-            replaces=REPLACES[name], launches=main_path["launches"][name],
+            replaces=REPLACES[name],
+            launches=sum(p["launches"][name] for p in paths.values()),
+            launches_by_path={k: p["launches"][name]
+                              for k, p in paths.items()},
             library_ms=None, **timings["SBVH"][name],
             morton=dict(timings["Morton"][name]),
             grass=dict(launches=g_main["launches"][name],
@@ -969,21 +1462,28 @@ def main() -> None:
                        transforms=g_main["work"][name + "_transforms"],
                        **g_timings[name]),
             cli=dict(launches=cli["launches"][name],
-                     tests=cli["work"][name + "_tests"])))
+                     tests=cli["work"][name + "_tests"]),
+            shading=dict(launches=shading["launches"][name],
+                         tests=shading["work"][name + "_tests"])))
+    kernels[0]["shading"].update(
+        alpha_recasts=shading["recasts"],
+        recast_cast_ms=s_kernels["recast_cast_ms"],
+        **{f"{k} set": s_kernels[k] for k in ("camera", "recast", "shadow")})
     # The instance transform: on the main paths it runs as a device function
     # of the two kernels above, whose counted transforms show it; launched
     # on its own (never by a cast) it is held against its plain version.
     kernels.append(dict(
         name="xform_rays", route="cuda", source=SOURCE,
         replaces=REPLACES["xform_rays"],
-        launches=g_main["launches"]["xform_rays"],
+        launches=sum(p["launches"]["xform_rays"] for p in paths.values()),
         runs_inside=["closest_hit", "any_hit"],
         transforms_in_grass_render=(
             g_main["work"]["closest_hit_transforms"]
             + g_main["work"]["any_hit_transforms"]),
         library_ms=None, **g_timings["xform_rays"]))
-    if not all(k["launches"] > 0 and k["grass"]["launches"] > 0
-               and k["cli"]["launches"] > 0 for k in kernels[:2]):
+    if not all(k["launches_by_path"][p] > 0 for k in kernels[:2]
+               for p in ("cornell", "grass", "cli", "env")) \
+            or not kernels[0]["launches_by_path"]["shading"] > 0:
         raise AssertionError("a kernel of the main paths was never launched")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -25,6 +25,9 @@ class Hit(NamedTuple):
     b1: Tensor       # (R,) barycentric of v1
     mask: Tensor     # (R,) bool
     inst: Tensor = None
+    # The cast's own t (the traversal's, before the Möller-Trumbore
+    # recomputation of `t`), inf on a miss: alpha recasts advance from it.
+    t_cast: Tensor = None
 
 
 class SurfacePoint(NamedTuple):

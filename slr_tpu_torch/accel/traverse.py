@@ -1001,4 +1001,5 @@ def intersect_pallas(geom, pt: PallasTris, o: Tensor, d: Tensor,
                tri=torch.where(mask, tri, -1), b0=1.0 - b1 - b2, b1=b1,
                mask=mask,
                inst=torch.where(mask, inst, -1) if instances is not None
-               else None)
+               else None,
+               t_cast=torch.where(mask, best_t, float("inf")))

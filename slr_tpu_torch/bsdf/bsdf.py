@@ -34,7 +34,8 @@ def gather_lobes(scene: FlatScene, mat_id: Tensor, uv: Tensor,
                  wpos: Tensor | None = None,
                  lambdas: Tensor | None = None) -> LobeBatch:
     """Evaluate all material textures at the hits: (R,) mat ids -> (R, L)
-    lobes. The lobe weight texture is folded into s0."""
+    lobes. The lobe weight texture (a mixed material's ratio) is folded
+    into s0; Voronoi textures are evaluated at the world position `wpos`."""
     mats = scene.materials
     m, l = mats.lobe_kind.shape
     mid = torch.clamp(mat_id, 0, m - 1)
@@ -47,14 +48,17 @@ def gather_lobes(scene: FlatScene, mat_id: Tensor, uv: Tensor,
     lam_b = (None if lambdas is None else
              lambdas[:, None, :].expand(r, l, lambdas.shape[-1])
              .reshape(-1, lambdas.shape[-1]))
+    pos_b = (None if wpos is None else
+             wpos[:, None, :].expand(r, l, 3).reshape(-1, 3))
 
     def ev_s(ids: Tensor) -> Tensor:
-        return eval_stex(scene.stex, ids.reshape(-1), uv_b,
-                         lam_b).reshape(r, l, -1)
+        return eval_stex(scene.stex, ids.reshape(-1), uv_b, lam_b,
+                         pos_b).reshape(r, l, -1)
 
     def ev_f(ids: Tensor, default1: bool = False) -> Tensor:
         fn = eval_float_texture_default1 if default1 else eval_float_texture
-        return fn(scene.ftex, ids.reshape(-1), uv_b).reshape(r, l)
+        return fn(scene.ftex, ids.reshape(-1), uv_b, scene.stex.images,
+                  scene.stex.image_hw, pos_b).reshape(r, l)
 
     s0 = ev_s(stex_ids[..., 0])
     s1 = ev_s(stex_ids[..., 1])
@@ -71,15 +75,9 @@ def _is_kind(kind: Tensor, k: LobeKind) -> Tensor:
     return kind == int(k)
 
 
-def _present(lobes: LobeBatch) -> tuple:
-    """The lobe kinds that can occur; raises for kinds not ported yet."""
-    kinds = lb_mod.PORTED_KINDS if lobes.kinds is None else lobes.kinds
-    missing = [LobeKind(k).name for k in kinds
-               if int(k) not in lb_mod.PORTED_KINDS]
-    if missing:
-        raise NotImplementedError(
-            f"lobe kind(s) {', '.join(missing)} are not ported yet")
-    return tuple(int(k) for k in kinds)
+def _have(lobes: LobeBatch, k: LobeKind) -> bool:
+    """Can this kind occur in the batch? Absent kinds are never evaluated."""
+    return lobes.kinds is None or int(k) in lobes.kinds
 
 
 def _sanitized(lobes: LobeBatch, kind: LobeKind) -> LobeBatch:
@@ -97,56 +95,96 @@ def _sanitized(lobes: LobeBatch, kind: LobeKind) -> LobeBatch:
                      kinds=lobes.kinds)
 
 
+def _any_kind(lobes: LobeBatch, kinds) -> Tensor:
+    out = torch.zeros(lobes.kind.shape, dtype=torch.bool,
+                      device=lobes.kind.device)
+    for k in kinds:
+        if _have(lobes, k):
+            out = out | _is_kind(lobes.kind, k)
+    return out
+
+
+def _bcast(lobes: LobeBatch, v: Tensor) -> Tensor:
+    """(R, ...) per-ray values -> (R, L, ...) per lobe."""
+    return v[:, None].expand(lobes.kind.shape + v.shape[1:])
+
+
 def lobe_weights(lobes: LobeBatch, wo: Tensor, hero: Tensor) -> Tensor:
     """Per-lobe sampling weights (R, L)."""
-    present = _present(lobes)
-    shape = lobes.kind.shape
-    wo_b = wo[:, None, :].expand(shape + (3,))
-    hero_b = hero[:, None].expand(shape)
-    w = torch.zeros(shape, dtype=torch.float32, device=wo.device)
-    if LobeKind.LAMBERT in present:
-        w = torch.where(_is_kind(lobes.kind, LobeKind.LAMBERT),
-                        importance(lobes.s0, hero_b), w)
-    for kind, fn in ((LobeKind.SPECULAR_REFLECTION,
-                      lb_mod.specular_reflection_weight),
-                     (LobeKind.SPECULAR_SCATTERING,
-                      lb_mod.specular_scattering_weight)):
-        if kind in present:
+    wo_b = _bcast(lobes, wo)
+    hero_b = _bcast(lobes, hero)
+    w = torch.zeros(lobes.kind.shape, dtype=torch.float32, device=wo.device)
+    diffuse_like = _any_kind(lobes, (LobeKind.LAMBERT, LobeKind.OREN_NAYAR,
+                                     LobeKind.WARD, LobeKind.FLIPPED_LAMBERT))
+    w = torch.where(diffuse_like, importance(lobes.s0, hero_b), w)
+    for kind, fn in (
+            (LobeKind.SPECULAR_REFLECTION, lb_mod.specular_reflection_weight),
+            (LobeKind.SPECULAR_SCATTERING, lb_mod.specular_scattering_weight),
+            (LobeKind.MICROFACET_REFLECTION,
+             lb_mod.microfacet_reflection_weight),
+            (LobeKind.MICROFACET_SCATTERING,
+             lb_mod.microfacet_reflection_weight),
+            (LobeKind.ASHIKHMIN,
+             lambda lb, a, h: sum(lb_mod.ashikhmin_weights(lb, a, h)))):
+        if _have(lobes, kind):
             w = torch.where(_is_kind(lobes.kind, kind),
                             fn(_sanitized(lobes, kind), wo_b, hero_b), w)
     return torch.clamp(w, min=0.0)
 
 
-def _eval_internal_all(lobes: LobeBatch, wo: Tensor, wi: Tensor) -> Tensor:
+def _eval_internal_all(lobes: LobeBatch, wo: Tensor, wi: Tensor,
+                       adjoint: bool = False) -> Tensor:
     """Internal fs per lobe (R, L, S); delta lobes evaluate to zero."""
-    present = _present(lobes)
-    shape = lobes.kind.shape
+    wo_b = _bcast(lobes, wo)
+    wi_b = _bcast(lobes, wi)
     fs = torch.zeros(lobes.s0.shape, dtype=torch.float32, device=wo.device)
-    if LobeKind.LAMBERT in present:
-        fs = torch.where(
-            _is_kind(lobes.kind, LobeKind.LAMBERT)[..., None],
-            lb_mod.lambert_eval(_sanitized(lobes, LobeKind.LAMBERT),
-                                wo[:, None, :].expand(shape + (3,)),
-                                wi[:, None, :].expand(shape + (3,))), fs)
+    for kind, fn in (
+            (LobeKind.LAMBERT, lb_mod.lambert_eval),
+            (LobeKind.FLIPPED_LAMBERT, lb_mod.flipped_lambert_eval),
+            (LobeKind.OREN_NAYAR, lb_mod.oren_nayar_eval),
+            (LobeKind.MICROFACET_REFLECTION,
+             lb_mod.microfacet_reflection_eval),
+            (LobeKind.MICROFACET_SCATTERING,
+             lambda lb, a, b: lb_mod.microfacet_scattering_eval(
+                 lb, a, b, adjoint=adjoint)),
+            (LobeKind.WARD, lb_mod.ward_eval),
+            (LobeKind.ASHIKHMIN, lb_mod.ashikhmin_eval)):
+        if _have(lobes, kind):
+            fs = torch.where(_is_kind(lobes.kind, kind)[..., None],
+                             fn(_sanitized(lobes, kind), wo_b, wi_b), fs)
     return fs
 
 
-def _pdf_internal_all(lobes: LobeBatch, wo: Tensor, wi: Tensor) -> Tensor:
+def _pdf_internal_all(lobes: LobeBatch, wo: Tensor, wi: Tensor,
+                      hero: Tensor) -> Tensor:
     """Internal pdf per lobe (R, L); delta lobes have zero pdf."""
-    present = _present(lobes)
-    shape = lobes.kind.shape
-    pdf = torch.zeros(shape, dtype=torch.float32, device=wo.device)
-    if LobeKind.LAMBERT in present:
-        pdf = torch.where(
-            _is_kind(lobes.kind, LobeKind.LAMBERT),
-            lb_mod.lambert_pdf(lobes, wo[:, None, :].expand(shape + (3,)),
-                               wi[:, None, :].expand(shape + (3,))), pdf)
+    wo_b = _bcast(lobes, wo)
+    wi_b = _bcast(lobes, wi)
+    hero_b = _bcast(lobes, hero)
+    pdf = torch.zeros(lobes.kind.shape, dtype=torch.float32, device=wo.device)
+    cosine_like = _any_kind(lobes, (LobeKind.LAMBERT, LobeKind.OREN_NAYAR))
+    pdf = torch.where(cosine_like, lb_mod.lambert_pdf(lobes, wo_b, wi_b), pdf)
+    for kind, fn in (
+            (LobeKind.FLIPPED_LAMBERT,
+             lambda lb: lb_mod.flipped_lambert_pdf(lb, wo_b, wi_b)),
+            (LobeKind.MICROFACET_REFLECTION,
+             lambda lb: lb_mod.microfacet_reflection_pdf(lb, wo_b, wi_b)),
+            (LobeKind.MICROFACET_SCATTERING,
+             lambda lb: lb_mod.microfacet_scattering_pdf(lb, wo_b, wi_b,
+                                                         hero_b)),
+            (LobeKind.WARD, lambda lb: lb_mod.ward_pdf(lb, wo_b, wi_b)),
+            (LobeKind.ASHIKHMIN,
+             lambda lb: lb_mod.ashikhmin_pdf(lb, wo_b, wi_b, hero_b))):
+        if _have(lobes, kind):
+            pdf = torch.where(_is_kind(lobes.kind, kind),
+                              fn(_sanitized(lobes, kind)), pdf)
     return pdf
 
 
 def _side_match(kind: Tensor, wo: Tensor, wi: Tensor, gn: Tensor) -> Tensor:
     """Geometric side test: a lobe contributes only if its reflection /
-    transmission type matches the side of wi."""
+    transmission type matches the side of wi; FLIPPED_LAMBERT scatters into
+    the opposite hemisphere, so it matches on the transmission side."""
     reflect = (_dot3(wo, gn) * _dot3(wi, gn) > 0.0)[:, None]
     refl_only = torch.zeros(kind.shape, dtype=torch.bool, device=kind.device)
     for k in lb_mod.REFLECTION_ONLY:
@@ -158,7 +196,7 @@ def _side_match(kind: Tensor, wo: Tensor, wi: Tensor, gn: Tensor) -> Tensor:
     return torch.where(flipped, ~reflect, match)
 
 
-def _sn_correction(v: Tensor, gn: Tensor) -> Tensor:
+def _sn_correction_dir(v: Tensor, gn: Tensor) -> Tensor:
     """Veach shading-normal correction |v.z| / |dot(v, gN_sn)|."""
     return v[..., 2].abs() / torch.clamp(_dot3(v, gn).abs(), min=1e-6)
 
@@ -173,12 +211,13 @@ def bsdf_has_nondelta(lobes: LobeBatch) -> Tensor:
 
 def bsdf_evaluate(lobes: LobeBatch, wo: Tensor, wi: Tensor, gn: Tensor,
                   hero: Tensor, adjoint: bool = False) -> Tensor:
-    """Full evaluate with side test and sn-correction. Returns (R, S)."""
+    """Full evaluate with side test and sn-correction. Returns (R, S).
+    The evaluated lobes are always the radiance-transport ones; `adjoint`
+    only moves the correction to the query direction wo."""
     match = _side_match(lobes.kind, wo, wi, gn)
     fs = torch.where(match[..., None], _eval_internal_all(lobes, wo, wi),
                      0.0).sum(1)
-    corr = _sn_correction(wo if adjoint else wi, gn)
-    return fs * corr[..., None]
+    return fs * _sn_correction_dir(wo if adjoint else wi, gn)[..., None]
 
 
 def bsdf_pdf(lobes: LobeBatch, wo: Tensor, wi: Tensor, gn: Tensor,
@@ -186,7 +225,7 @@ def bsdf_pdf(lobes: LobeBatch, wo: Tensor, wi: Tensor, gn: Tensor,
     """Weighted one-sample-MIS pdf over lobes."""
     w = lobe_weights(lobes, wo, hero)
     sum_w = w.sum(-1)
-    pdfs = _pdf_internal_all(lobes, wo, wi)
+    pdfs = _pdf_internal_all(lobes, wo, wi, hero)
     pdf = (pdfs * w).sum(-1) / torch.clamp(sum_w, min=1e-30)
     return torch.where(sum_w > 0, pdf, 0.0)
 
@@ -194,12 +233,12 @@ def bsdf_pdf(lobes: LobeBatch, wo: Tensor, wi: Tensor, gn: Tensor,
 def bsdf_sample(lobes: LobeBatch, wo: Tensor, gn: Tensor, hero: Tensor,
                 wl_selected: Tensor, u_comp: Tensor, u0: Tensor, u1: Tensor,
                 adjoint: bool = False) -> BSDFSampleResult:
-    """One-sample MIS sampling over the lobes.
+    """One-sample MIS sampling over the lobes (the picked lobe's own
+    sample; for non-delta picks the pdf and fs of every lobe at wi).
 
     wl_selected (R,) bool: the hero wavelength is already collapsed; a glass
     transmission when it is False reports `dispersive=True` so the caller
     divides the pdf by S."""
-    present = _present(lobes)
     r, l = lobes.kind.shape
     w = lobe_weights(lobes, wo, hero)
     sum_w = w.sum(-1)
@@ -232,6 +271,12 @@ def bsdf_sample(lobes: LobeBatch, wo: Tensor, gn: Tensor, hero: Tensor,
         (LobeKind.LAMBERT,
          lambda: lb_mod.lambert_sample(san(LobeKind.LAMBERT), wo, front,
                                        u0, u1)),
+        (LobeKind.FLIPPED_LAMBERT,
+         lambda: lb_mod.flipped_lambert_sample(
+             san(LobeKind.FLIPPED_LAMBERT), wo, front, u0, u1)),
+        (LobeKind.OREN_NAYAR,
+         lambda: lb_mod.oren_nayar_sample(san(LobeKind.OREN_NAYAR), wo,
+                                          front, u0, u1)),
         (LobeKind.SPECULAR_REFLECTION,
          lambda: lb_mod.specular_reflection_sample(
              san(LobeKind.SPECULAR_REFLECTION), wo)),
@@ -239,8 +284,20 @@ def bsdf_sample(lobes: LobeBatch, wo: Tensor, gn: Tensor, hero: Tensor,
          lambda: lb_mod.specular_scattering_sample(
              san(LobeKind.SPECULAR_SCATTERING), wo, hero, u_remap,
              adjoint=adjoint)),
+        (LobeKind.MICROFACET_REFLECTION,
+         lambda: lb_mod.microfacet_reflection_sample(
+             san(LobeKind.MICROFACET_REFLECTION), wo, u0, u1)),
+        (LobeKind.MICROFACET_SCATTERING,
+         lambda: lb_mod.microfacet_scattering_sample(
+             san(LobeKind.MICROFACET_SCATTERING), wo, hero, u_remap, u0, u1,
+             adjoint=adjoint)),
+        (LobeKind.WARD,
+         lambda: lb_mod.ward_sample(san(LobeKind.WARD), wo, u0, u1)),
+        (LobeKind.ASHIKHMIN,
+         lambda: lb_mod.ashikhmin_sample(san(LobeKind.ASHIKHMIN), wo, front,
+                                         hero, u_remap, u0, u1)),
     )
-    outs = [(k, fn()) for k, fn in samplers if k in present]
+    outs = [(k, fn()) for k, fn in samplers if _have(lobes, k)]
 
     def sel(field: str) -> Tensor:
         v = getattr(outs[0][1], field)
@@ -275,20 +332,21 @@ def bsdf_sample(lobes: LobeBatch, wo: Tensor, gn: Tensor, hero: Tensor,
 
     # Combined pdf and fs for non-delta picks.
     pdf = pdf_sel * w_sel
-    pdfs_all = _pdf_internal_all(lobes, wo, wi)
+    pdfs_all = _pdf_internal_all(lobes, wo, wi, hero)
     pdf_others = (pdfs_all * w).sum(-1) - take1(pdfs_all) * w_sel
     pdf = torch.where(is_delta, pdf, pdf + pdf_others)
     pdf = pdf / torch.clamp(sum_w, min=1e-30)
 
     match = _side_match(lobes.kind, wo, wi, gn)
-    fs_sum = torch.where(match[..., None], _eval_internal_all(lobes, wo, wi),
+    fs_sum = torch.where(match[..., None],
+                         _eval_internal_all(lobes, wo, wi, adjoint=adjoint),
                          0.0).sum(1)
     fs = torch.where(is_delta[..., None], fs_sel, fs_sum)
 
     ok = (sum_w > 0) & (pdf_sel > 0)
     pdf = torch.where(ok, pdf, 0.0)
     fs = torch.where(ok[..., None], fs, 0.0)
-    corr = _sn_correction(wo if adjoint else wi, gn)
+    corr = _sn_correction_dir(wo if adjoint else wi, gn)
     fs = fs * corr[..., None]
     dispersive = is_trans & ~wl_selected & _is_kind(
         picked.kind, LobeKind.SPECULAR_SCATTERING)

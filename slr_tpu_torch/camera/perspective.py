@@ -1,6 +1,6 @@
-"""Thin-lens perspective camera ray generation (counterpart of
-slr_tpu/camera/perspective.py). Camera space is right-handed, looking down
-+z. The equirectangular camera is not ported yet.
+"""Thin-lens perspective and equirectangular camera ray generation
+(counterpart of slr_tpu/camera/perspective.py). Camera space is
+right-handed, looking down +z.
 """
 from __future__ import annotations
 
@@ -27,6 +27,25 @@ def camera_derived(cam: Camera):
     op_width = op_height * cam.aspect
     img_area = op_width * op_height * (cam.img_dist / cam.obj_dist) ** 2
     return op_width, op_height, img_area
+
+
+def sample_camera_rays_equirect(cam: Camera, px: Tensor, py: Tensor,
+                                width: int, height: int) -> CameraRays:
+    """Latitude-longitude rays from the camera's origin: phi = phi_angle u,
+    theta = theta_angle v, direction (-sin phi sin theta, cos theta,
+    cos phi sin theta). Its direction pdf is the mapping's true density
+    1 / (phi_angle theta_angle sin theta), as the reference package uses
+    (the original renderer's sin^2 differs)."""
+    phi = cam.phi_angle * (px / width)
+    theta = cam.theta_angle * (py / height)
+    st = torch.sin(theta)
+    dir_local = torch.stack([-torch.sin(phi) * st, torch.cos(theta),
+                             torch.cos(phi) * st], dim=-1)
+    dir_pdf = 1.0 / (cam.phi_angle * cam.theta_angle
+                     * torch.clamp(st.abs(), min=1e-6))
+    o = torch.broadcast_to(cam.to_world[:3, 3], dir_local.shape)
+    d = transform_vector(cam.to_world, dir_local)
+    return CameraRays(o=o, d=d, weight=dir_local[..., 2].abs() / dir_pdf)
 
 
 def sample_camera_rays(cam: Camera, px: Tensor, py: Tensor, width: int,

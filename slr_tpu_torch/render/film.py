@@ -41,9 +41,11 @@ def to_uint8(img01) -> np.ndarray:
 
 
 def save_png(path: str, img01) -> None:
-    """Minimal dependency-free PNG writer (RGB8)."""
+    """Minimal dependency-free PNG writer: RGB8, or RGBA8 for an image of
+    four channels."""
     arr = to_uint8(img01)
-    h, w = arr.shape[:2]
+    h, w, c = arr.shape
+    colour_type = {3: 2, 4: 6}[c]
     raw = b"".join(b"\x00" + arr[row].tobytes() for row in range(h))
 
     def chunk(tag: bytes, data: bytes) -> bytes:
@@ -51,7 +53,8 @@ def save_png(path: str, img01) -> None:
         return c + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
 
     png = b"\x89PNG\r\n\x1a\n"
-    png += chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+    png += chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour_type, 0, 0,
+                                          0))
     png += chunk(b"IDAT", zlib.compress(raw, 6))
     png += chunk(b"IEND", b"")
     with open(path, "wb") as f:

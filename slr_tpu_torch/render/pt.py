@@ -5,31 +5,37 @@ uses).
 Both casts go through the worklist traversal of accel/traverse.py: the
 hand-written kernels on the card, their plain versions on the CPU. A scene
 with instances passes each ray's shutter fraction `f` to the casts, whose
-kernels take the ray into an instance's space themselves. Alpha cutouts,
-normal maps and the environment light are not ported yet; scenes that need
-them raise.
+kernels take the ray into an instance's space themselves. In a scene with
+alpha cutouts a hit whose alpha texture is 0 is cast past again (closest
+hit, per-ray tmin, only the cut rays active) until no ray stops on a cut
+texel, and shadow rays take the same closest-hit path instead of any hit.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
-from ..accel.intersect import RAY_EPSILON, Hit, resolve_surface_point
+from ..accel.intersect import RAY_EPSILON, Hit, fetch_tri_row, resolve_surface_point
 from ..accel.traverse import T_FAR, anyhit_pallas, intersect_pallas, nearest_super_tn
 from ..core.math3d import cross, normalize
 from ..core.sampling import sample_discrete_1d
 from ..core.transform import trs_apply_normal, trs_apply_vector, trs_at
+from ..scene.textures import eval_float_texture, eval_normal_texture, eval_stex, perturb_frame
 from ..scene.types import FlatScene
 
 Tensor = torch.Tensor
 
 
-def _refuse_unported(scene: FlatScene) -> None:
-    for flag, what in ((scene.has_alpha, "alpha cutouts"),
-                       (scene.has_normal_map, "normal maps"),
-                       (scene.has_env, "environment lights")):
-        if flag:
-            raise NotImplementedError(f"{what} are not ported yet")
+# Alpha recasts since the last reset: `casts` counts the recast loop's
+# closest-hit casts, `rays` the cut rays they carried.
+ALPHA_RECASTS = {"casts": 0, "rays": 0}
+
+
+def reset_alpha_recasts() -> None:
+    for k in ALPHA_RECASTS:
+        ALPHA_RECASTS[k] = 0
 
 
 def _shutter(o: Tensor, f) -> Tensor:
@@ -44,7 +50,6 @@ def scene_intersect(scene: FlatScene, o: Tensor, d: Tensor,
                     active: Tensor | None = None) -> Hit:
     """Closest hit against the scene's chunk tables: one traversal covers
     the static triangles and, at shutter fraction `f`, the instances."""
-    _refuse_unported(scene)
     if scene.instances is None:
         return intersect_pallas(scene.geometry, scene.pallas_tris, o, d, tmin,
                                 tmax, active=active)
@@ -56,19 +61,61 @@ def scene_intersect(scene: FlatScene, o: Tensor, d: Tensor,
 def scene_intersect_alpha(scene: FlatScene, o: Tensor, d: Tensor,
                           tmin=RAY_EPSILON, tmax=float("inf"), f=None,
                           active: Tensor | None = None) -> Hit:
-    """Closest hit honoring alpha cutouts (none in the ported scenes)."""
-    return scene_intersect(scene, o, d, tmin, tmax, f, active=active)
+    """Closest hit honoring alpha cutouts: hits whose alpha texture is 0
+    are cast past, with tmin just beyond them and only the cut rays
+    active, until none is left. The loop has no cap, as in the reference;
+    each round costs one host sync. tmin advances from the cast's own t,
+    not from the Möller-Trumbore t of the hit: on grazing rays the two
+    differ by more than RAY_EPSILON, and a recast from the latter finds
+    the same triangle again, forever (the reference's loop does)."""
+    hit = scene_intersect(scene, o, d, tmin, tmax, f, active=active)
+    if not scene.has_alpha:
+        return hit
+    tmin_b = torch.broadcast_to(
+        torch.as_tensor(tmin, dtype=torch.float32, device=o.device),
+        hit.t.shape)
+    while True:
+        cut = _alpha_zero(scene, hit)
+        n_cut = int(cut.sum())
+        if n_cut == 0:
+            return hit
+        ALPHA_RECASTS["casts"] += 1
+        ALPHA_RECASTS["rays"] += n_cut
+        tmin_b = torch.where(cut, hit.t_cast + RAY_EPSILON, tmin_b)
+        rehit = scene_intersect(scene, o, d, tmin_b, tmax, f, active=cut)
+        hit = Hit(*(None if h is None else torch.where(cut, r, h)
+                    for h, r in zip(hit, rehit)))
+
+
+def _alpha_zero(scene: FlatScene, h: Hit) -> Tensor:
+    """Hits on a texel whose alpha texture evaluates to exactly 0."""
+    row = fetch_tri_row(scene.geometry.tri_table, torch.clamp(h.tri, min=0))
+    b2 = (1.0 - h.b0 - h.b1)[..., None]
+    uv = h.b0[..., None] * row.uv0 + h.b1[..., None] * row.uv1 + b2 * row.uv2
+    a = eval_float_texture(scene.ftex, row.alpha_id, uv, scene.stex.images,
+                           scene.stex.image_hw)
+    return h.mask & (row.alpha_id >= 0) & (a == 0.0)
 
 
 def resolve_sp(scene: FlatScene, hit: Hit, o: Tensor, d: Tensor, f=None):
     """Surface-point resolution at the hits. A hit on an instance has its
     shading frame brought from the instance's local space to world space at
     the ray's shutter fraction; its position is world-space already (o + d*t
-    with a world-parameter t)."""
-    _refuse_unported(scene)
+    with a world-parameter t). A normal map then perturbs the frame."""
     sp = resolve_surface_point(scene.geometry, hit, o, d)
-    if scene.instances is None or hit.inst is None:
-        return sp
+    if scene.instances is not None and hit.inst is not None:
+        sp = _instance_frame(scene, hit, sp, o, f)
+    if scene.has_normal_map:
+        ntex_id = scene.geometry.tri_ntex.to(torch.int64)[
+            torch.clamp(hit.tri, min=0)]
+        sp = perturb_frame(sp, eval_normal_texture(
+            scene.ntex, scene.stex.images, scene.stex.image_hw, ntex_id,
+            sp.uv))
+    return sp
+
+
+def _instance_frame(scene: FlatScene, hit: Hit, sp, o: Tensor, f):
+    """The shading frame of hits on instances, in world space."""
     inst = scene.instances
     i = torch.clamp(hit.inst, min=0)
     T, R, S = trs_at(inst.t0_T[i], inst.t0_R[i], inst.t0_S[i],
@@ -87,11 +134,39 @@ def resolve_sp(scene: FlatScene, hit: Hit, o: Tensor, d: Tensor, f=None):
 
 def scene_occluded(scene: FlatScene, o: Tensor, d: Tensor, tmin, tmax,
                    f=None, active: Tensor | None = None) -> Tensor:
-    """Occlusion-only query (bool per ray) through the any-hit traversal."""
-    _refuse_unported(scene)
+    """Occlusion-only query (bool per ray) through the any-hit traversal;
+    in a scene with alpha cutouts through closest hit and its recasts, so
+    that a cut-out surface casts no shadow."""
+    if scene.has_alpha:
+        return scene_intersect_alpha(scene, o, d, tmin, tmax, f=f,
+                                     active=active).mask
     f_ = _shutter(o, f) if scene.instances is not None else None
     return anyhit_pallas(scene.geometry, scene.pallas_tris, o, d, tmin, tmax,
                          active=active, f=f_)
+
+
+def _env_direction(phi: Tensor, theta: Tensor) -> Tensor:
+    """(phi, theta) -> world direction (-sin phi sin theta, cos theta,
+    cos phi sin theta)."""
+    st = torch.sin(theta)
+    return torch.stack([-torch.sin(phi) * st, torch.cos(theta),
+                        torch.cos(phi) * st], dim=-1)
+
+
+def _env_uv_from_direction(d: Tensor) -> tuple[Tensor, Tensor]:
+    """Direction -> equirectangular (u, v) in [0, 1)^2."""
+    theta = torch.arccos(torch.clamp(d[..., 1], -1.0, 1.0))
+    phi = torch.atan2(-d[..., 0], d[..., 2])
+    phi = torch.where(phi < 0, phi + 2 * math.pi, phi)
+    return phi / (2 * math.pi), theta / math.pi
+
+
+def _env_radiance(scene: FlatScene, u: Tensor, v: Tensor,
+                  lambdas: Tensor | None) -> Tensor:
+    """Le of the environment at (u, v): its texture x scale."""
+    tex_id = torch.broadcast_to(scene.env.stex.to(torch.int64), u.shape)
+    return eval_stex(scene.stex, tex_id, torch.stack([u, v], dim=-1),
+                     lambdas) * scene.env.scale
 
 
 def _super_boxes(scene: FlatScene) -> Tensor:

@@ -15,6 +15,7 @@ held in int64.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -29,16 +30,19 @@ from ..bsdf.bsdf import (
     gather_lobes,
     is_emissive,
 )
-from ..camera.perspective import sample_camera_rays
+from ..camera.perspective import sample_camera_rays, sample_camera_rays_equirect
 from ..core import rng
 from ..core.device import resolve_device
 from ..core.math3d import dot, frame_from_local, frame_to_local
 from ..core.rng import Decision
-from ..core.sampling import power_heuristic
+from ..core.sampling import pdf_continuous_2d, power_heuristic, sample_continuous_2d
 from ..scene.types import CameraKind, FlatScene
 from ..spectrum.rgb import importance
 from .pt import (
     _area_light_prob,
+    _env_direction,
+    _env_radiance,
+    _env_uv_from_direction,
     _ray_sort_key,
     _select_light,
     resolve_sp,
@@ -82,12 +86,13 @@ def _work_pixel_sample(work: Tensor, n_pix: int, sample_offset: int):
 
 def _camera_ray(scene: FlatScene, pid: Tensor, sid: Tensor, seed: int,
                 width: int, height: int):
-    if scene.camera.kind != CameraKind.PERSPECTIVE:
-        raise NotImplementedError("only the perspective camera is ported")
     px = (pid % width).to(torch.float32)
     py = (pid // width).to(torch.float32)
     jx = rng.uniform(seed, pid, sid, 0, Decision.PIXEL_X)
     jy = rng.uniform(seed, pid, sid, 0, Decision.PIXEL_Y)
+    if scene.camera.kind == CameraKind.EQUIRECTANGULAR:   # no lens randoms
+        return sample_camera_rays_equirect(scene.camera, px + jx, py + jy,
+                                           width, height)
     lx = rng.uniform(seed, pid, sid, 0, Decision.LENS_U)
     ly = rng.uniform(seed, pid, sid, 0, Decision.LENS_V)
     return sample_camera_rays(scene.camera, px + jx, py + jy, width, height,
@@ -199,6 +204,20 @@ def _run_wavefront(scene: FlatScene, n_pix: int, spp_end: int, seed: int,
         radiance = lane.radiance + torch.where(
             emissive[:, None], lane.alpha * le * mis_b[:, None], 0.0)
 
+        # ---- the environment on a miss -----------------------------------
+        if scene.has_env:
+            esc = lane_on & ~hit.mask
+            eu, ev = _env_uv_from_direction(lane.ray_d)
+            env_le = _env_radiance(scene, eu, ev, lam_s)
+            env_pdf = (scene.lights.env_prob
+                       * pdf_continuous_2d(scene.env.dist, eu, ev)
+                       / torch.clamp(2.0 * math.pi ** 2
+                                     * torch.sin(ev * math.pi), min=1e-8))
+            mis_env = torch.where(first | lane.prev_delta, 1.0,
+                                  power_heuristic(lane.prev_pdf, env_pdf))
+            radiance = radiance + torch.where(
+                esc[:, None], lane.alpha * env_le * mis_env[:, None], 0.0)
+
         # ---- shade: NEE + BSDF sample + RR -------------------------------
         # Shading sees the RR-divided alpha; the emission above saw the
         # undivided one.
@@ -224,6 +243,18 @@ def _run_wavefront(scene: FlatScene, n_pix: int, spp_end: int, seed: int,
         dist = torch.sqrt(dist2)
         shadow_dir = delta_p / dist[:, None]
         shadow_tmax = dist * (1.0 - 1e-3)
+        if scene.has_env:
+            # An environment sample: a direction from its importance map
+            # (same randoms as the area point), its solid-angle pdf through
+            # the sin(theta) Jacobian, and a shadow ray leaving the scene.
+            ex, ey, uvpdf = sample_continuous_2d(scene.env.dist, lu0, lu1)
+            e_theta = ey * math.pi
+            e_dir = _env_direction(ex * 2 * math.pi, e_theta)
+            env_area_pdf = uvpdf / torch.clamp(
+                2.0 * math.pi ** 2 * torch.sin(e_theta), min=1e-8)
+            shadow_dir = torch.where(is_env[:, None], e_dir, shadow_dir)
+            shadow_tmax = torch.where(is_env, 4.0 * scene.world_radius,
+                                      shadow_tmax)
 
         # NEE at hit b contributes a path of b+1 segments, allowed iff
         # b < max_depth; the same condition gates extending.
@@ -247,6 +278,19 @@ def _run_wavefront(scene: FlatScene, n_pix: int, spp_end: int, seed: int,
         nee_ok = (hit_ok & depth_ok & nondelta & vis & (light_pdf > 0)
                   & ~is_env)
         radiance = radiance + torch.where(nee_ok[:, None], contrib_nee, 0.0)
+
+        if scene.has_env:
+            le_env = _env_radiance(scene, ex, ey, lam_s)
+            env_light_pdf = light_prob * env_area_pdf
+            mis_env2 = power_heuristic(env_light_pdf, pdf_bsdf_w)
+            g_env = dot(shadow_dir_sn, gn_sn).abs()
+            contrib_env = (alpha_sh * le_env * fs_nee
+                           * (g_env * mis_env2 / torch.clamp(
+                               env_light_pdf, min=1e-30))[:, None])
+            env_ok = (hit_ok & depth_ok & nondelta & vis & is_env
+                      & (env_light_pdf > 0))
+            radiance = radiance + torch.where(env_ok[:, None], contrib_env,
+                                              0.0)
 
         uc = rng.uniform(seed, pixel_id, sample_id, bounce_id,
                          Decision.BSDF_COMPONENT)

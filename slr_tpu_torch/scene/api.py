@@ -7,10 +7,11 @@ Builtins build the authoring graph (scene/graph.py); `load_scene` returns
 the flattened FlatScene with the renderer config and the render settings.
 Transforms are float32 4x4 numpy matrices made by core/math3d.py.
 
-Not ported yet (ROADMAP Q3): image files (`Image2D`, `setEnvironment`) and
-the import of assimp binary dumps (`load3DModel` of an existing `.assbin`)
-raise NotImplementedError. `load3DModel` of a missing asset gets the
-reference's placeholder geometry, and `.obj` files its minimal reader.
+Image files are read by the port's own PNG decoder and EXR reader
+(utils/png.py, utils/exr.py); a missing or undecodable image gets a
+procedural sky with a warning, as in the reference package. `load3DModel`
+reads assimp binary dumps (`.assbin`, utils/assbin.py) and `.obj` files,
+and gives a missing asset the reference's placeholder geometry.
 """
 from __future__ import annotations
 
@@ -20,8 +21,10 @@ import os
 from typing import Any, Callable, Optional
 
 import numpy as np
+import torch
 
 from ..core import math3d as m3
+from ..spectrum.rgb import srgb_degamma
 from .dsl.parser import DSLError, Env, TupleVal, execute
 from .graph import (
     CameraNode,
@@ -38,12 +41,19 @@ from .graph import (
     SpectrumDesc,
     Vertex,
     flatten,
-    unported,
 )
 
 logger = logging.getLogger("slr_tpu_torch")
 
 _MISSING = object()
+
+
+class _TaggedImage(np.ndarray):
+    """ndarray carrying the Image2D store mode (AsIs / NormalTexture /
+    AlphaTexture) through the scene language's values, so that
+    FloatTexture(image) knows to sample the alpha channel."""
+
+    store_mode: str = "AsIs"
 
 
 class ApiContext:
@@ -391,7 +401,9 @@ def make_global_env(ctx: ApiContext) -> Env:
 
     def _image2d(path, type, ctx):
         """Image2D(path, mode): mode AsIs | NormalTexture | AlphaTexture."""
-        return _load_image(ctx, path)
+        img = _load_image(ctx, path).view(_TaggedImage)
+        img.store_mode = type
+        return img
 
     env.define("Image2D", builtin(
         _sig([("path", str), ("type", str, "AsIs")], _image2d)
@@ -714,9 +726,51 @@ def _raycast_down(o, d, p0, p1, p2):
 
 
 def _load_image(ctx: ApiContext, path: str) -> np.ndarray:
-    """Image files (textures, environment maps) wait for the image and EXR
-    readers."""
-    raise unported(f"loading the image {path!r}")
+    """An image file as float32 linear RGBA: EXR as stored, PNG through
+    the sRGB de-gamma. A missing asset or an undecodable EXR (the reference
+    repo bundles neither its EXR environments nor its models) gets a
+    procedural sky, with a warning, so that the scene still loads."""
+    full = path if os.path.isabs(path) else os.path.join(ctx.base_dir, path)
+    if os.path.exists(full) and full.lower().endswith(".exr"):
+        from ..utils.exr import read_exr
+
+        try:
+            return read_exr(full)
+        except ValueError as e:
+            logger.warning("%s; using placeholder", e)
+            return _placeholder_sky()
+    if os.path.exists(full):
+        from ..utils.png import read_png
+
+        # A PNG feature the decoder lacks raises, as an unreadable file
+        # does in the reference package.
+        im = read_png(full).astype(np.float32) / 255.0
+        rgb = srgb_degamma(torch.as_tensor(im[..., :3])).numpy()
+        return np.concatenate([rgb, im[..., 3:]], axis=-1)
+    logger.warning("image asset %s unavailable; substituting a procedural "
+                   "sky", path)
+    return _placeholder_sky()
+
+
+def _placeholder_sky(h: int = 64, w: int = 128) -> np.ndarray:
+    """Equirectangular gradient sky with a bright sun disc, so the
+    environment's importance sampler has something to work on."""
+    v = (np.arange(h, dtype=np.float32) + 0.5) / h   # 0 top .. 1 bottom
+    u = (np.arange(w, dtype=np.float32) + 0.5) / w
+    uu, vv = np.meshgrid(u, v)
+    zenith = np.array([0.35, 0.55, 1.0], np.float32)
+    horizon = np.array([0.9, 0.85, 0.8], np.float32)
+    ground = np.array([0.25, 0.22, 0.2], np.float32)
+    tcol = np.where(
+        (vv < 0.5)[..., None],
+        zenith * (1 - 2 * vv)[..., None] + horizon * (2 * vv)[..., None],
+        horizon * (2 - 2 * vv)[..., None] + ground * (2 * vv - 1)[..., None],
+    ).astype(np.float32)
+    # the sun at (u, v) = (0.25, 0.3)
+    ang = (uu - 0.25) ** 2 + (vv - 0.3) ** 2
+    sun = np.exp(-ang / 0.0004)[..., None] * np.float32([40.0, 36.0, 30.0])
+    return np.concatenate([tcol + sun, np.ones((h, w, 1), np.float32)],
+                          axis=-1)
 
 
 def _load_model(ctx: ApiContext, path: str, mat_proc) -> Node:
@@ -728,7 +782,11 @@ def _load_model(ctx: ApiContext, path: str, mat_proc) -> Node:
     node = Node("model:" + path)
     full0 = path if os.path.isabs(path) else os.path.join(ctx.base_dir, path)
     if full0.endswith(".assbin") and os.path.exists(full0):
-        raise unported(f"importing the assimp model {path!r}")
+        try:
+            return _load_assbin(ctx, full0, path, mat_proc)
+        except Exception as e:
+            logger.warning("assbin import of %s failed (%s); falling through",
+                           path, e)
     if "sphere" in os.path.basename(path):
         pos, nrm, tan, uv, tris = uv_sphere((0.0, 0.0, 0.0), 1.0, 32, 64)
         mesh = MeshNode("sphere")
@@ -785,6 +843,69 @@ def _load_model(ctx: ApiContext, path: str, mat_proc) -> Node:
     )
     node.add_child(mesh)
     return node
+
+
+def _load_assbin(ctx: ApiContext, full: str, path: str, mat_proc) -> Node:
+    """Assimp binary-dump import (node_constructor.cpp:35-105 semantics):
+    walk the node hierarchy accumulating transforms, emit one MeshNode per
+    (node, mesh) reference with the transform baked into vertices (the
+    reference bakes static transforms at flatten time anyway), generate
+    tangents when the dump lacks them, and resolve each mesh's material
+    through the DSL override callback with the material's name."""
+    from ..utils.assbin import read_assbin
+
+    sc = read_assbin(full)
+    root = Node("model:" + path)
+
+    def mat_for(mesh_idx: int, mat_idx: int):
+        name = (sc.material_names[mat_idx]
+                if 0 <= mat_idx < len(sc.material_names) else "")
+        return _apply_mat_proc(ctx, mat_proc,
+                               name or f"material{mat_idx}")
+
+    def walk(an, xform: np.ndarray):
+        m = xform @ np.asarray(an.transform, np.float32)
+        for mi in an.mesh_indices:
+            am = sc.meshes[mi]
+            v = am.positions @ m[:3, :3].T + m[:3, 3]
+            lin = m[:3, :3]
+            inv_t = np.linalg.inv(lin).T
+            if am.normals is not None:
+                nrm = am.normals @ inv_t.T
+            else:
+                nrm = np.zeros_like(v)
+                f = am.faces
+                fn = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
+                for k in range(3):
+                    np.add.at(nrm, f[:, k], fn)
+            nrm = nrm / np.maximum(
+                np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-20)
+            if am.tangents is not None:
+                tan = am.tangents @ lin.T
+                tan = tan / np.maximum(
+                    np.linalg.norm(tan, axis=-1, keepdims=True), 1e-20)
+            else:
+                # generated tangents (aiProcess_CalcTangentSpace analogue):
+                # any frame orthogonal to the normal
+                up = np.where(np.abs(nrm[:, 1:2]) < 0.9,
+                              np.array([[0.0, 1.0, 0.0]], np.float32),
+                              np.array([[1.0, 0.0, 0.0]], np.float32))
+                tan = np.cross(up, nrm)
+                tan = tan / np.maximum(
+                    np.linalg.norm(tan, axis=-1, keepdims=True), 1e-20)
+            uv = (am.texcoords if am.texcoords is not None
+                  else np.zeros((v.shape[0], 2), np.float32))
+            mesh = MeshNode(f"{an.name}:mesh{mi}")
+            for i in range(v.shape[0]):
+                mesh.vertices.append(Vertex(v[i], nrm[i], tan[i], uv[i]))
+            mesh.add_group(mat_for(mi, am.material_index), None, None,
+                           [tuple(t) for t in np.asarray(am.faces)])
+            root.add_child(mesh)
+        for ch in an.children:
+            walk(ch, m)
+
+    walk(sc.root, np.eye(4, dtype=np.float32))
+    return root
 
 
 def _shell_material(name: str) -> MaterialDesc:

@@ -1,15 +1,19 @@
 """Host-side scene builder: authoring calls -> FlatScene tensors
 (counterpart of slr_tpu/scene/build.py).
 
-Ported so far: what the built-in Cornell and grass-field scenes use.
-Constant and tabulated spectra, matte/metal/glass/emitter materials,
-triangle meshes with baked static transforms, shared BLASes with static or
-animated instances (motion blur), and the perspective camera. Image /
-checker / voronoi textures, normal maps and the environment light are not
-ported yet. The chunk tables are cut from an SBVH over the static triangles
-(`use_bvh=True`, the default, as in the reference) or sliced in Morton
-order (`use_bvh=False`). All arrays are built with numpy on the host and
-become CPU tensors; `FlatScene.to` moves them.
+Constant, tabulated, checker, voronoi and image spectra; constant,
+checker, image, voronoi and one-minus float textures; image and checker
+normal maps; every material kind (matte and Oren-Nayar, inverse, metal,
+glass, the microfacet pair, Ward, Ashikhmin, mixed, summed, emitter);
+triangle meshes with baked static transforms, alpha cutouts and normal
+maps; shared BLASes with static or animated instances (motion blur); the
+perspective and equirectangular cameras and the environment light with its
+importance map. Images are stacked into one padded (NI, Hmax, Wmax, 4)
+atlas, as the reference lays them out. The chunk tables are cut from an
+SBVH over the static triangles (`use_bvh=True`, the default, as in the
+reference) or sliced in Morton order (`use_bvh=False`). All arrays are
+built with numpy on the host and become CPU tensors; `FlatScene.to` moves
+them.
 """
 from __future__ import annotations
 
@@ -86,6 +90,8 @@ class SceneBuilder:
         self.curves: list[tuple[np.ndarray, np.ndarray]] = []
         self.stex: list[_STex] = []
         self.ftex: list[_FTex] = []
+        self.images: list[np.ndarray] = []
+        self.ntex: list[dict] = []
         self.materials: list[_Material] = []
         self.positions: list[np.ndarray] = []
         self.normals: list[np.ndarray] = []
@@ -102,6 +108,8 @@ class SceneBuilder:
         self._cur_blas: Optional[dict] = None
         self.instance_rows: list[tuple[int, np.ndarray, np.ndarray]] = []
         self.camera: Optional[Camera] = None
+        self.env_stex: int = -1
+        self.env_scale: float = 1.0
 
     # -- textures -----------------------------------------------------------
     def _spec(self, v, illuminant: bool = False) -> np.ndarray:
@@ -166,8 +174,91 @@ class SceneBuilder:
         vals = etas if component == 0 else ks
         return self.add_stex_curve(self.add_curve(lambdas, vals), scale)
 
+    def add_stex_colorchecker(self, patch: int, scale: float = 1.0) -> int:
+        from ..spectrum.spectral import _raw
+
+        wls = np.linspace(380.0, 730.0, 36)
+        return self.add_stex_curve(
+            self.add_curve(wls, _raw("cie.npz")["colorchecker"][patch]), scale)
+
+    def add_stex_checker(self, v0, v1, map_scale=(1, 1),
+                         map_offset=(0, 0)) -> int:
+        self.stex.append(_STex(STexKind.CHECKER, self._spec(v0),
+                               self._spec(v1), map_scale=tuple(map_scale),
+                               map_offset=tuple(map_offset)))
+        return len(self.stex) - 1
+
+    def add_stex_voronoi(self, scale: float, brightness: float = 0.8) -> int:
+        v = np.zeros(self.s, np.float32)
+        v[0] = scale
+        v2 = np.zeros(self.s, np.float32)
+        v2[0] = brightness
+        self.stex.append(_STex(STexKind.VORONOI, v, v2))
+        return len(self.stex) - 1
+
+    def add_image(self, img: np.ndarray) -> int:
+        """img: (H, W, 3 | 4) float32 linear."""
+        img = np.asarray(img, np.float32)
+        if img.shape[-1] == 3:
+            img = np.concatenate([img, np.ones_like(img[..., :1])], axis=-1)
+        self.images.append(img)
+        return len(self.images) - 1
+
+    def add_stex_image(self, image_id: int, scale=1.0, map_scale=(1, 1),
+                       map_offset=(0, 0)) -> int:
+        self.stex.append(_STex(STexKind.IMAGE, self._spec(scale),
+                               np.zeros(self.s, np.float32),
+                               image_id=image_id, map_scale=tuple(map_scale),
+                               map_offset=tuple(map_offset)))
+        return len(self.stex) - 1
+
+    def add_ntex_image(self, image_id: int, map_scale=(1, 1),
+                       map_offset=(0, 0)) -> int:
+        self.ntex.append({
+            "kind": 0, "image_id": image_id, "step_width": 1.0,
+            "reverse": 0.0, "map_scale": tuple(map_scale),
+            "map_offset": tuple(map_offset)})
+        return len(self.ntex) - 1
+
+    def add_ntex_checker(self, step_width: float = 0.05,
+                         reverse: bool = False, map_scale=(1, 1),
+                         map_offset=(0, 0)) -> int:
+        self.ntex.append({
+            "kind": 1, "image_id": -1, "step_width": float(step_width),
+            "reverse": 1.0 if reverse else 0.0,
+            "map_scale": tuple(map_scale), "map_offset": tuple(map_offset)})
+        return len(self.ntex) - 1
+
     def add_ftex_const(self, value: float) -> int:
         self.ftex.append(_FTex(FTexKind.CONST, float(value)))
+        return len(self.ftex) - 1
+
+    def add_ftex_checker(self, v0: float, v1: float, map_scale=(1, 1),
+                         map_offset=(0, 0)) -> int:
+        self.ftex.append(_FTex(FTexKind.CHECKER, float(v0), float(v1),
+                               map_scale=tuple(map_scale),
+                               map_offset=tuple(map_offset)))
+        return len(self.ftex) - 1
+
+    def add_ftex_image(self, image_id: int, channel: str = "lum",
+                       scale: float = 1.0, map_scale=(1, 1),
+                       map_offset=(0, 0)) -> int:
+        """An image's luminance, or its alpha (channel 'alpha'), x scale."""
+        chan = 3.0 if channel == "alpha" else 0.0
+        self.ftex.append(_FTex(FTexKind.IMAGE, float(scale), chan,
+                               image_id=image_id, map_scale=tuple(map_scale),
+                               map_offset=tuple(map_offset)))
+        return len(self.ftex) - 1
+
+    def add_ftex_voronoi(self, scale: float, value_scale: float = 1.0) -> int:
+        """A random value in [0, value_scale) per cell of size `scale`."""
+        self.ftex.append(_FTex(FTexKind.VORONOI, float(value_scale),
+                               float(scale)))
+        return len(self.ftex) - 1
+
+    def add_ftex_one_minus(self, src_ftex: int) -> int:
+        """1 - src (the second arm of a mixed material)."""
+        self.ftex.append(_FTex(FTexKind.ONE_MINUS, image_id=src_ftex))
         return len(self.ftex) - 1
 
     # -- materials ----------------------------------------------------------
@@ -177,9 +268,28 @@ class SceneBuilder:
         self.materials.append(_Material(lobes=lobes, emit_stex=emit_stex))
         return len(self.materials) - 1
 
-    def add_matte(self, reflectance_stex: int) -> int:
-        return self._add_material(
-            [_Lobe(LobeKind.LAMBERT, (reflectance_stex, -1, -1))])
+    def add_matte(self, reflectance_stex: int, sigma_ftex: int = -1) -> int:
+        """Lambert, or Oren-Nayar with roughness `sigma_ftex`."""
+        if sigma_ftex >= 0:
+            lobe = _Lobe(LobeKind.OREN_NAYAR, (reflectance_stex, -1, -1),
+                         (sigma_ftex, -1))
+        else:
+            lobe = _Lobe(LobeKind.LAMBERT, (reflectance_stex, -1, -1))
+        return self._add_material([lobe])
+
+    def add_inverse(self, base_mat: int) -> int:
+        """The base material scattering into the opposite hemisphere
+        (diffuse bases: the two-sided sum(matte, inverse(matte)) idiom)."""
+        flip = {int(LobeKind.LAMBERT): LobeKind.FLIPPED_LAMBERT,
+                int(LobeKind.OREN_NAYAR): LobeKind.FLIPPED_LAMBERT}
+        lobes = []
+        for lb in self.materials[base_mat].lobes:
+            if int(lb.kind) not in flip:
+                raise NotImplementedError(
+                    f"inverse of lobe kind {LobeKind(lb.kind).name} is not "
+                    "supported")
+            lobes.append(dataclasses.replace(lb, kind=flip[int(lb.kind)]))
+        return self._add_material(lobes)
 
     def add_metal(self, coeff_stex: int, eta_stex: int, k_stex: int) -> int:
         return self._add_material(
@@ -190,6 +300,44 @@ class SceneBuilder:
         return self._add_material(
             [_Lobe(LobeKind.SPECULAR_SCATTERING,
                    (coeff_stex, eta_ext_stex, eta_int_stex))])
+
+    def add_microfacet_metal(self, eta_stex: int, k_stex: int,
+                             alpha_ftex: int) -> int:
+        return self._add_material(
+            [_Lobe(LobeKind.MICROFACET_REFLECTION, (-1, eta_stex, k_stex),
+                   (alpha_ftex, -1))])
+
+    def add_microfacet_glass(self, eta_ext_stex: int, eta_int_stex: int,
+                             alpha_ftex: int) -> int:
+        return self._add_material(
+            [_Lobe(LobeKind.MICROFACET_SCATTERING,
+                   (-1, eta_ext_stex, eta_int_stex), (alpha_ftex, -1))])
+
+    def add_ward(self, reflectance_stex: int, ax_ftex: int,
+                 ay_ftex: int) -> int:
+        return self._add_material(
+            [_Lobe(LobeKind.WARD, (reflectance_stex, -1, -1),
+                   (ax_ftex, ay_ftex))])
+
+    def add_ashikhmin(self, rs_stex: int, rd_stex: int, nu_ftex: int,
+                      nv_ftex: int) -> int:
+        return self._add_material(
+            [_Lobe(LobeKind.ASHIKHMIN, (rs_stex, rd_stex, -1),
+                   (nu_ftex, nv_ftex))])
+
+    def add_mixed(self, mat0: int, mat1: int, ratio_ftex: int) -> int:
+        """mat0 x ratio + mat1 x (1 - ratio): a constant ratio's complement
+        folds at build time, any other evaluates as 1 - ratio(uv)."""
+        lobes = [dataclasses.replace(lb, wtex=ratio_ftex)
+                 for lb in self.materials[mat0].lobes]
+        src = self.ftex[ratio_ftex]
+        if src.kind == FTexKind.CONST:
+            inv = self.add_ftex_const(1.0 - src.value)
+        else:
+            inv = self.add_ftex_one_minus(ratio_ftex)
+        lobes += [dataclasses.replace(lb, wtex=inv)
+                  for lb in self.materials[mat1].lobes]
+        return self._add_material(lobes)
 
     def add_summed(self, mat0: int, mat1: int) -> int:
         m0 = self.materials[mat0]
@@ -205,8 +353,11 @@ class SceneBuilder:
 
     # -- geometry -----------------------------------------------------------
     def add_mesh(self, positions, normals, tangents, uvs, tri_vidx, mat_id,
-                 transform: Optional[np.ndarray] = None) -> None:
-        """Append a triangle mesh; bakes `transform` (4x4) into the vertices."""
+                 transform: Optional[np.ndarray] = None, alpha_ftex: int = -1,
+                 normal_ntex: int = -1) -> None:
+        """Append a triangle mesh; bakes `transform` (4x4) into the vertices.
+        `alpha_ftex` cuts the surface out where it evaluates to 0;
+        `normal_ntex` perturbs its shading frame."""
         positions = np.asarray(positions, np.float32).reshape(-1, 3)
         normals = np.asarray(normals, np.float32).reshape(-1, 3)
         tangents = np.asarray(tangents, np.float32).reshape(-1, 3)
@@ -232,8 +383,8 @@ class SceneBuilder:
             b["uvs"].append(uvs)
             b["tri_vidx"].append(tri_vidx + b["nverts"])
             b["tri_mat"].append(mat.copy())
-            b["tri_alpha"].append(np.full((n_tris,), -1, np.int32))
-            b["tri_ntex"].append(np.full((n_tris,), -1, np.int32))
+            b["tri_alpha"].append(np.full((n_tris,), alpha_ftex, np.int32))
+            b["tri_ntex"].append(np.full((n_tris,), normal_ntex, np.int32))
             b["nverts"] += positions.shape[0]
             return
         self.positions.append(positions)
@@ -242,8 +393,8 @@ class SceneBuilder:
         self.uvs.append(uvs)
         self.tri_vidx.append(tri_vidx + self._nverts)
         self.tri_mat.append(mat.copy())
-        self.tri_alpha.append(np.full((n_tris,), -1, np.int32))
-        self.tri_ntex.append(np.full((n_tris,), -1, np.int32))
+        self.tri_alpha.append(np.full((n_tris,), alpha_ftex, np.int32))
+        self.tri_ntex.append(np.full((n_tris,), normal_ntex, np.int32))
         self._nverts += positions.shape[0]
 
     # -- instancing / motion blur -------------------------------------------
@@ -285,6 +436,22 @@ class SceneBuilder:
             img_dist=f(img_dist), obj_dist=f(obj_dist),
             phi_angle=f(2 * np.pi), theta_angle=f(np.pi),
         )
+
+    def set_camera_equirect(self, to_world, phi_angle: float = 2 * np.pi,
+                            theta_angle: float = np.pi) -> None:
+        """Latitude-longitude camera over phi_angle x theta_angle."""
+        f = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+        self.camera = Camera(
+            kind=CameraKind.EQUIRECTANGULAR,
+            to_world=_t(to_world, np.float32),
+            aspect=f(1.0), fovy=f(1.0), lens_radius=f(0.0), img_dist=f(1.0),
+            obj_dist=f(1.0), phi_angle=f(phi_angle),
+            theta_angle=f(theta_angle),
+        )
+
+    def set_environment(self, stex_id: int, scale: float = 1.0) -> None:
+        self.env_stex = stex_id
+        self.env_scale = float(scale)
 
     # -- build --------------------------------------------------------------
     def build(self, use_bvh: bool = True,
@@ -442,6 +609,17 @@ class SceneBuilder:
         stexs = self.stex or [_STex(STexKind.CONST, np.zeros(s, np.float32),
                                     np.zeros(s, np.float32))]
         ftexs = self.ftex or [_FTex(FTexKind.CONST)]
+        if self.images:
+            hmax = max(im.shape[0] for im in self.images)
+            wmax = max(im.shape[1] for im in self.images)
+            atlas = np.zeros((len(self.images), hmax, wmax, 4), np.float32)
+            image_hw = np.zeros((len(self.images), 2), np.int32)
+            for i, im in enumerate(self.images):
+                atlas[i, :im.shape[0], :im.shape[1]] = im
+                image_hw[i] = (im.shape[0], im.shape[1])
+        else:
+            atlas = np.zeros((0, 1, 1, 4), np.float32)
+            image_hw = np.zeros((0, 2), np.int32)
         if self.spectral:
             # Pre-tabulate constant spectra into per-nm curves (exact: the
             # Meng-Simon basis is piecewise linear with 5 nm knots), so the
@@ -479,12 +657,14 @@ class SceneBuilder:
             image_id=_t([t.image_id for t in stexs], np.int32),
             map_scale=_t([t.map_scale for t in stexs], np.float32),
             map_offset=_t([t.map_offset for t in stexs], np.float32),
-            images=torch.zeros((0, 1, 1, 4), dtype=torch.float32),
-            image_hw=torch.zeros((0, 2), dtype=torch.int32),
+            images=_t(atlas), image_hw=_t(image_hw),
             curve_id=_t([t.curve_id for t in stexs], np.int32),
             curves_wl=_t(curves_wl), curves_v=_t(curves_v),
             spectral=self.spectral,
-            has_checker=False, has_voronoi=False,
+            # A float checker sets the flag too, as in the reference.
+            has_checker=(any(t.kind == STexKind.CHECKER for t in stexs)
+                         or any(t.kind == FTexKind.CHECKER for t in ftexs)),
+            has_voronoi=any(t.kind == STexKind.VORONOI for t in stexs),
             has_curve=any(t.kind == STexKind.CURVE for t in stexs),
             has_const=any(t.kind == STexKind.CONST for t in stexs),
         )
@@ -495,10 +675,13 @@ class SceneBuilder:
             image_id=_t([t.image_id for t in ftexs], np.int32),
             map_scale=_t([t.map_scale for t in ftexs], np.float32),
             map_offset=_t([t.map_offset for t in ftexs], np.float32),
+            has_image=any(t.kind == FTexKind.IMAGE for t in ftexs),
+            has_voronoi=any(t.kind == FTexKind.VORONOI for t in ftexs),
+            has_one_minus=any(t.kind == FTexKind.ONE_MINUS for t in ftexs),
         )
 
         # Every emissive triangle of the static prefix is one light of
-        # importance 1. An emissive material in the instanced tail would be
+        # importance 1; the environment, when present, is one more. An emissive material in the instanced tail would be
         # invisible to light sampling while its implicit hits were still
         # MIS-weighted against a light pdf that is never realized: a silent
         # energy bias, so it is refused.
@@ -517,14 +700,30 @@ class SceneBuilder:
         n_area = len(light_tris)
         if n_area == 0:
             light_tris = np.zeros((1,), np.int32)
+        env_imp = 1.0 if self.env_stex >= 0 else 0.0
         lights = Lights(
             tri_idx=_t(light_tris),
             dist=build_discrete_1d(torch.ones(max(n_area, 1))),
-            env_prob=torch.tensor(0.0, dtype=torch.float32),
+            env_prob=torch.tensor(env_imp / max(env_imp + n_area, 1.0),
+                                  dtype=torch.float32),
         )
-        env = EnvLight(stex=torch.tensor(-1, dtype=torch.int32),
-                       dist=build_continuous_2d(torch.ones((4, 8))),
-                       scale=torch.tensor(1.0, dtype=torch.float32))
+        # The environment's importance map: luminance x sin(theta) of an
+        # image environment, else flat.
+        if (self.env_stex >= 0
+                and self.stex[self.env_stex].kind == STexKind.IMAGE):
+            img = self.images[self.stex[self.env_stex].image_id]
+            lum = (0.222485 * img[..., 0] + 0.716905 * img[..., 1]
+                   + 0.060610 * img[..., 2])
+            h = img.shape[0]
+            sin_t = np.sin(np.pi * (np.arange(h) + 0.5) / h)
+            env_dist = build_continuous_2d(
+                torch.as_tensor(lum * sin_t[:, None], dtype=torch.float32))
+        else:
+            env_dist = build_continuous_2d(torch.ones((4, 8)))
+        env = EnvLight(stex=torch.tensor(self.env_stex, dtype=torch.int32),
+                       dist=env_dist,
+                       scale=torch.tensor(self.env_scale,
+                                          dtype=torch.float32))
 
         instances = None
         if inst_rows:
@@ -562,18 +761,23 @@ class SceneBuilder:
         if instances is not None:
             pallas_tris = extend_pallas_instanced(
                 pallas_tris, positions, tri_vidx, blas_ranges, inst_rows)
-        ntex_table = NormalTextures(
-            kind=_t([0], np.int32), image_id=_t([-1], np.int32),
-            step_width=_t([1.0], np.float32), reverse=_t([0.0], np.float32),
-            map_scale=_t([(1.0, 1.0)], np.float32),
-            map_offset=_t([(0.0, 0.0)], np.float32))
+        nts = self.ntex or [{
+            "kind": 0, "image_id": -1, "step_width": 1.0, "reverse": 0.0,
+            "map_scale": (1.0, 1.0), "map_offset": (0.0, 0.0)}]
+        ntex_table = NormalTextures(**{
+            k: _t([t[k] for t in nts],
+                  np.int32 if k in ("kind", "image_id") else np.float32)
+            for k in ("kind", "image_id", "step_width", "reverse",
+                      "map_scale", "map_offset")})
         return FlatScene(
             geometry=geom, materials=materials, stex=stex, ftex=ftex,
             lights=lights, env=env, camera=self.camera, bvh=bvh,
             pallas_tris=pallas_tris, ntex=ntex_table, instances=instances,
             n_static=n_static,
             lobe_kinds_present=lobe_kinds_present,
-            has_env=False, has_normal_map=False, has_alpha=False,
+            has_env=self.env_stex >= 0,
+            has_normal_map=bool((tri_ntex >= 0).any()),
+            has_alpha=bool((tri_alpha >= 0).any()),
             world_center=_t(center),
             world_radius=torch.tensor(radius, dtype=torch.float32),
             super_boxes_blob=np.asarray(

@@ -4,13 +4,8 @@ FlatScene (counterpart of slr_tpu/scene/graph.py).
 Nodes with transforms and children, triangle-mesh nodes, reference nodes for
 instancing and camera nodes; `flatten` bakes static transforms into the
 vertices and hands flat arrays to `scene.build.SceneBuilder`. Animated
-subtrees and reference nodes become shared BLASes with instance rows.
-
-The descriptors cover every kind the scene language has. Those whose
-builder method the port does not have yet (checker, voronoi, image and
-normal textures, alpha textures, Oren-Nayar `sigma`, the microfacet, Ward,
-Ashikhmin, mixed and inverse materials, the environment image) raise
-NotImplementedError at flatten time, naming ROADMAP item Q3.
+subtrees and reference nodes become shared BLASes with instance rows. The
+descriptors cover every kind the scene language has.
 """
 from __future__ import annotations
 
@@ -20,12 +15,6 @@ from typing import Any, Optional
 import numpy as np
 
 from .build import SceneBuilder
-
-
-def unported(what: str):
-    """The error for a scene feature whose shading is not ported yet."""
-    return NotImplementedError(
-        f"{what} is not ported to slr_tpu_torch yet (ROADMAP Q3)")
 
 
 # ---------------------------------------------------------------------------
@@ -314,13 +303,52 @@ class _Flattener:
         return b.add_stex_const(tuple(sd.to_rgb()))
 
     def _build_stex(self, desc: STexDesc) -> int:
+        b = self.b
         if desc.kind == "constant":
             illum = (desc.spectrum is not None
                      and desc.spectrum.spectrum_type == "Illuminant")
             return self._spectrum_const(desc.spectrum, illum)
-        if desc.kind in ("checker", "voronoi", "image"):
-            raise unported(f"the {desc.kind} spectrum texture")
+        if desc.kind == "checker":
+            if b.spectral:
+                # The checker's colours as reflectance (u, v, scale).
+                tid = b.add_stex_checker((0, 0, 0), (0, 0, 0),
+                                         desc.mapping.scale,
+                                         desc.mapping.offset)
+                b.stex[tid].value = b._rgb_to_uvs(
+                    np.asarray(desc.v0.to_rgb()), False)
+                b.stex[tid].value2 = b._rgb_to_uvs(
+                    np.asarray(desc.v1.to_rgb()), False)
+                return tid
+            return b.add_stex_checker(
+                tuple(desc.v0.to_rgb()), tuple(desc.v1.to_rgb()),
+                desc.mapping.scale, desc.mapping.offset)
+        if desc.kind == "voronoi":
+            return b.add_stex_voronoi(desc.cell_scale, desc.brightness)
+        if desc.kind == "image":
+            img_id = b.add_image(desc.image)
+            tid = b.add_stex_image(img_id, 1.0, desc.mapping.scale,
+                                   desc.mapping.offset)
+            if b.spectral:
+                # value[2] is the spectral scale multiplier.
+                b.stex[tid].value = np.float32([0.0, 0.0, 1.0])
+            return tid
         raise ValueError(f"unknown stex kind {desc.kind}")
+
+    def ntex(self, desc: Optional[NTexDesc]) -> int:
+        if desc is None:
+            return -1
+        key = id(desc)
+        if key in self._ftex_cache:     # shared cache, keyed by identity
+            return self._ftex_cache[key]
+        b = self.b
+        if desc.kind == "image":
+            tid = b.add_ntex_image(b.add_image(desc.image),
+                                   desc.mapping.scale, desc.mapping.offset)
+        else:                           # the procedural checker board
+            tid = b.add_ntex_checker(desc.step_width, desc.reverse,
+                                     desc.mapping.scale, desc.mapping.offset)
+        self._ftex_cache[key] = tid
+        return tid
 
     def ftex(self, desc: Optional[FTexDesc]) -> int:
         if desc is None:
@@ -330,8 +358,17 @@ class _Flattener:
             return self._ftex_cache[key]
         if desc.kind == "constant":
             tid = self.b.add_ftex_const(desc.value)
-        elif desc.kind in ("checker", "voronoi", "image"):
-            raise unported(f"the {desc.kind} float texture")
+        elif desc.kind == "checker":
+            tid = self.b.add_ftex_checker(desc.v0, desc.v1,
+                                          desc.mapping.scale,
+                                          desc.mapping.offset)
+        elif desc.kind == "voronoi":
+            tid = self.b.add_ftex_voronoi(desc.cell_scale, desc.value_scale)
+        elif desc.kind == "image":
+            img_id = self.b.add_image(desc.image)
+            tid = self.b.add_ftex_image(img_id, desc.channel, 1.0,
+                                        desc.mapping.scale,
+                                        desc.mapping.offset)
         else:
             raise ValueError(f"unknown ftex kind {desc.kind}")
         self._ftex_cache[key] = tid
@@ -348,9 +385,8 @@ class _Flattener:
         b = self.b
         k = m.kind
         if k == "matte":
-            if m.ftex and m.ftex[0] is not None:
-                raise unported("the Oren-Nayar matte material (sigma)")
-            return b.add_matte(self.stex(m.stex[0]))
+            return b.add_matte(self.stex(m.stex[0]),
+                               self.ftex(m.ftex[0]) if m.ftex else -1)
         if k == "metal":
             return b.add_metal(*(self.stex(t) for t in m.stex))
         if k == "glass":
@@ -361,9 +397,26 @@ class _Flattener:
         if k == "emitter":
             scatter_id = self.material(m.sub[0])
             return b.add_emitter(scatter_id, self.stex(m.emitter.emittance))
-        if k in ("microfacet metal", "microfacet glass", "Ward", "Ashikhmin",
-                 "mix", "inverse"):
-            raise unported(f"the {k} material")
+        if k == "microfacet metal":
+            return b.add_microfacet_metal(self.stex(m.stex[0]),
+                                          self.stex(m.stex[1]),
+                                          self.ftex(m.ftex[0]))
+        if k == "microfacet glass":
+            return b.add_microfacet_glass(self.stex(m.stex[0]),
+                                          self.stex(m.stex[1]),
+                                          self.ftex(m.ftex[0]))
+        if k == "Ward":
+            return b.add_ward(self.stex(m.stex[0]), self.ftex(m.ftex[0]),
+                              self.ftex(m.ftex[1]))
+        if k == "Ashikhmin":
+            # The scene language's order is (Rd, Rs, nx, ny).
+            return b.add_ashikhmin(self.stex(m.stex[1]), self.stex(m.stex[0]),
+                                   self.ftex(m.ftex[0]), self.ftex(m.ftex[1]))
+        if k == "mix":
+            return b.add_mixed(self.material(m.sub[0]),
+                               self.material(m.sub[1]), self.ftex(m.ftex[0]))
+        if k == "inverse":
+            return b.add_inverse(self.material(m.sub[0]))
         raise ValueError(f"unknown material kind {k}")
 
     # -- geometry -----------------------------------------------------------
@@ -377,13 +430,13 @@ class _Flattener:
         for mat, normal_tex, alpha_tex, tris in node.groups:
             if not tris or mat is None:
                 continue
-            if alpha_tex:
-                raise unported("the alpha texture")
-            if normal_tex:
-                raise unported("the normal texture")
             mid = self.material(mat)
             self.b.add_mesh(pos, nrm, tan, uv, np.asarray(tris, np.int32),
-                            mid, transform=world)
+                            mid, transform=world,
+                            alpha_ftex=self.ftex(alpha_tex) if alpha_tex
+                            else -1,
+                            normal_ntex=self.ntex(normal_tex) if normal_tex
+                            else -1)
 
     def walk(self, node: Node, world: np.ndarray,
              world_end: Optional[np.ndarray] = None) -> None:
@@ -455,5 +508,6 @@ def flatten(scene: SceneDesc, spectral: bool = False, use_bvh: bool = True):
                    time_end=float(settings.get("timeEnd", 0.0)))
     f.walk(scene.root, np.eye(4, dtype=np.float32))
     if scene.env_image is not None:
-        raise unported("the environment light")
+        img_id = b.add_image(scene.env_image)
+        b.set_environment(b.add_stex_image(img_id), scene.env_scale)
     return b.build(use_bvh=use_bvh)

@@ -4,7 +4,9 @@
 area light, one metal and one glass sphere tessellated to triangles.
 `grass_field` is the RTC3-class instanced scene: one grass-blade BLAS
 instanced over a ground plane, a share of the blades swaying across the
-shutter.
+shutter. `glass_corridor` puts glass panes between the camera and a light
+on the far wall (deep specular paths); `env_sphere_scene` is a diffuse
+sphere under an environment light (IBL_Test-style).
 """
 from __future__ import annotations
 
@@ -133,6 +135,69 @@ def _finish_cornell_camera(b: SceneBuilder) -> None:
                 @ m3.mat_rotate_x(0.0563936).numpy())
     b.set_camera_perspective(to_world, aspect=4.0 / 3.0, fovy=0.4807705238,
                              lens_radius=0.025, img_dist=1.0, obj_dist=6.3)
+
+
+def glass_corridor(n_panes: int = 3, use_bvh: bool = True,
+                   device=None) -> FlatScene:
+    """A Cornell-style box with `n_panes` full-section glass slabs between
+    the camera and the far wall, where the light hangs: every camera ray
+    crosses 2 x n_panes specular interfaces before it sees anything
+    diffuse."""
+    dev = resolve_device(device)
+    b = SceneBuilder()
+    white = b.add_matte(b.add_stex_const((0.75, 0.75, 0.75)))
+    red = b.add_matte(b.add_stex_const((0.75, 0.25, 0.25)))
+    light_mat = b.add_emitter(b.add_matte(b.add_stex_const((0.9, 0.9, 0.9))),
+                              b.add_stex_const((30.0, 30.0, 30.0)))
+    quads = [
+        (_quad((-1.5, 0, 2.55), (-1.5, 0, -2.55), (-1.5, 2.5, -2.55),
+               (-1.5, 2.5, 2.55), (1, 0, 0), (0, 0, -1)), red),
+        (_quad((1.5, 0, -2.55), (1.5, 0, 2.55), (1.5, 2.5, 2.55),
+               (1.5, 2.5, -2.55), (-1, 0, 0), (0, 0, 1)), red),
+        (_quad((-1.5, 0, 2.55), (1.5, 0, 2.55), (1.5, 0, -2.55),
+               (-1.5, 0, -2.55), (0, 1, 0), (1, 0, 0)), white),
+        (_quad((-1.5, 0, -2.55), (1.5, 0, -2.55), (1.5, 2.5, -2.55),
+               (-1.5, 2.5, -2.55), (0, 0, 1), (1, 0, 0)), white),
+        (_quad((-1.5, 2.5, -2.55), (1.5, 2.5, -2.55), (1.5, 2.5, 2.55),
+               (-1.5, 2.5, 2.55), (0, -1, 0), (1, 0, 0)), white),
+        # The light on the back wall: camera rays cross every pane to it.
+        (_quad((-0.6, 0.6, -2.54), (0.6, 0.6, -2.54), (0.6, 1.8, -2.54),
+               (-0.6, 1.8, -2.54), (0, 0, 1), (1, 0, 0)), light_mat),
+    ]
+    for (pos, nrm, tan, uv, tris), mat in quads:
+        b.add_mesh(pos, nrm, tan, uv, tris, mat)
+    glass_mat = b.add_glass(b.add_stex_const((0.999, 0.999, 0.999)),
+                            b.add_stex_const((1.00036, 1.00021, 1.00071)),
+                            b.add_stex_const((1.51, 1.516, 1.526)))
+    for z0 in np.linspace(1.2, -0.8, n_panes):
+        for zq, nz in ((float(z0), 1.0), (float(z0) - 0.06, -1.0)):
+            pos, nrm, tan, uv, tris = _quad(
+                (-1.5, 0, zq), (1.5, 0, zq), (1.5, 2.5, zq), (-1.5, 2.5, zq),
+                (0, 0, nz), (1, 0, 0))
+            if nz < 0:     # flip the winding to match the geometric normal
+                tris = tris[:, ::-1]
+            b.add_mesh(pos, nrm, tan, uv, tris, glass_mat)
+    _finish_cornell_camera(b)
+    return b.build(use_bvh=use_bvh).to(dev)
+
+
+def env_sphere_scene(env_image: np.ndarray | None = None,
+                     env_scale: float = 1.0, reflectance: float = 0.6,
+                     use_bvh: bool = False, device=None) -> FlatScene:
+    """A diffuse sphere under an environment light: under a constant
+    environment L_env it reflects rho x L_env (a convex body, no
+    self-occlusion)."""
+    dev = resolve_device(device)
+    b = SceneBuilder()
+    mat = b.add_matte(b.add_stex_const((reflectance,) * 3))
+    b.add_mesh(*uv_sphere((0.0, 0.0, 0.0), 1.0, 16, 32), mat)
+    if env_image is None:
+        env_image = np.ones((16, 32, 3), np.float32)
+    b.set_environment(b.add_stex_image(b.add_image(env_image)), env_scale)
+    b.set_camera_perspective(m3.mat_translate([0.0, 0.0, -4.0]).numpy(),
+                             aspect=1.0, fovy=0.6, lens_radius=0.0,
+                             img_dist=1.0, obj_dist=4.0)
+    return b.build(use_bvh=use_bvh).to(dev)
 
 
 def _grass_blade(n_seg: int = 5, height: float = 0.35, width: float = 0.02):

@@ -1,6 +1,7 @@
-"""BSDF lobes of the slice (LAMBERT, SPECULAR_REFLECTION,
+"""BSDF lobes of the first slice (LAMBERT, SPECULAR_REFLECTION,
 SPECULAR_SCATTERING) against slr_tpu.bsdf: evaluate, pdf and sample on
-random (wo, wi, u), in spectral (S=16) and RGB (S=3) mode."""
+random (wo, wi, u), in spectral (S=16) and RGB (S=3) mode. The other kinds
+are held in test_torch_lobes.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -104,7 +105,15 @@ def test_sample(kind, s):
 
 
 def test_unported_kinds_raise_by_name():
-    _, tl, h = _inputs(LobeKind.LAMBERT, 3, seed=0)
-    tl.kinds = (int(LobeKind.LAMBERT), int(LobeKind.WARD))
-    with pytest.raises(NotImplementedError, match="WARD"):
-        tb.bsdf_pdf(tl, _t(h["wo"]), _t(h["wi"]), _t(h["gn"]), _t(h["hero"]))
+    """Every lobe kind is ported now: a batch whose kind set names a kind
+    that none of its lobes has (WARD here) evaluates as the reference does,
+    the absent kind's branch selecting nothing."""
+    jl, tl, h = _inputs(LobeKind.LAMBERT, 3, seed=0)
+    kinds = (int(LobeKind.LAMBERT), int(LobeKind.WARD))
+    tl.kinds = kinds
+    jl = jl.replace(kinds=kinds)
+    np.testing.assert_allclose(
+        tb.bsdf_pdf(tl, _t(h["wo"]), _t(h["wi"]), _t(h["gn"]),
+                    _t(h["hero"])).numpy(),
+        np.asarray(jb.bsdf_pdf(jl, _j(h["wo"]), _j(h["wi"]), _j(h["gn"]),
+                               _j(h["hero"]))), RTOL, ATOL)

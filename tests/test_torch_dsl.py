@@ -211,7 +211,7 @@ def test_morton_tables_on_request():
     assert port.bvh is None and int(port.pallas_tris.n_valid.sum()) == 1932
 
 
-# -- what is not ported yet -------------------------------------------------------
+# -- the shading kinds (ROADMAP Q3), once refused, against the reference ------
 
 _QUAD = """
 m = createMesh(
@@ -221,6 +221,21 @@ m = createMesh(
   ((mat, ((0, 1, 2),)),));
 addChild(root, m);
 """
+
+
+def _ref_flatten(src: str, spectral: bool = False, base_dir: str = "."):
+    from slr_tpu.scene.api import ApiContext as RCtx
+    from slr_tpu.scene.api import make_global_env as ref_env
+    from slr_tpu.scene.dsl.parser import execute as ref_execute
+    from slr_tpu.scene.graph import SceneDesc as RDesc
+    from slr_tpu.scene.graph import flatten as ref_flatten
+
+    rscene = RDesc()
+    rctx = RCtx(rscene, base_dir=base_dir)
+    ref_execute(src, ref_env(rctx), rctx)
+    carried = from_reference(ref_flatten(rscene, spectral=spectral))
+    carried.plucker = None
+    return carried
 
 
 @pytest.mark.parametrize("mat", [
@@ -235,18 +250,33 @@ addChild(root, m);
     '(Spectrum(1, 1, 1), Spectrum(0, 0, 0))),))',
 ], ids=["microfacet", "oren-nayar", "ward", "checker"])
 def test_unported_kinds_raise_naming_q3(mat):
-    _, ctx = run_src(f"mat = {mat};" + _QUAD)
-    with pytest.raises(NotImplementedError, match="Q3"):
-        flatten(ctx.scene)
+    """The four kinds this test once saw refused (ROADMAP Q3) flatten now,
+    leaf for leaf as the reference flattens them."""
+    src = f"mat = {mat};" + _QUAD
+    _, ctx = run_src(src)
+    assert _compare(flatten(ctx.scene), _ref_flatten(src)) > 70
 
 
-def test_image_files_raise_naming_q3(tmp_path):
-    with pytest.raises(NotImplementedError, match="Q3"):
-        run_src('img = Image2D("sky.png");')
+def test_image_files_raise_naming_q3(tmp_path, caplog):
+    """A missing image file gets the reference's procedural sky and its
+    warning (it once raised, ROADMAP Q3): as a texture and as the
+    environment, which then leads the light table with its share."""
+    from slr_tpu.scene.api import _placeholder_sky as ref_sky
+
+    env, _ = run_src('img = Image2D("sky.png");')
+    np.testing.assert_array_equal(env.lookup("img"), ref_sky())
     scene = tmp_path / "env.txt"
-    scene.write_text('setEnvironment("sky.exr", 2.0);')
-    with pytest.raises(NotImplementedError, match="Q3"):
-        read_scene(str(scene))
+    scene.write_text('setEnvironment("sky.exr", 2.0);' + _QUAD.replace(
+        "mat, ", 'createSurfaceMaterial("matte", '
+        '(SpectrumTexture(Spectrum(0.5)),)), '))
+    with caplog.at_level("WARNING", logger="slr_tpu_torch"):
+        desc, _ = read_scene(str(scene))
+    assert any("unavailable" in r.getMessage() for r in caplog.records)
+    np.testing.assert_array_equal(desc.env_image, ref_sky())
+    assert desc.env_scale == 2.0
+    port, _, _ = load_scene(str(scene), device="cpu")
+    assert port.has_env and float(port.lights.env_prob) == 1.0
+    assert tuple(port.env.dist.shape) == ref_sky().shape[:2]
 
 
 def test_missing_models_get_placeholders():

@@ -1,9 +1,9 @@
 """The port stands alone: nothing under slr_tpu_torch/, nor chip_smoke.py or
-tools/torch_*.py, imports JAX or the slr_tpu package (the machine with the
-card has no JAX). Checked twice: every module is imported in a process
-where any import of `jax`, `jaxlib` or `slr_tpu` raises, and every import
-statement of those files, function bodies included, is read from the
-source."""
+tools/torch_*.py, imports JAX, the slr_tpu package or PIL (the machine with
+the card has neither JAX nor PIL; the port decodes PNGs itself). Checked
+twice: every module is imported in a process where any import of `jax`,
+`jaxlib`, `slr_tpu` or `PIL` raises, and every import statement of those
+files, function bodies included, is read from the source."""
 import ast
 import glob
 import os
@@ -11,7 +11,7 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "slr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "slr_tpu", "PIL")
 
 
 def _port_files() -> list[str]:

@@ -245,17 +245,26 @@ def test_fully_instanced_scene_keeps_a_never_hit_static_triangle(ref):
 
 
 def test_build_refuses_what_it_cannot_render():
-    # A material whose lobes are not ported yet (ROADMAP Q3).
+    # A material of an unknown kind; every kind of the scene language
+    # (here the microfacet metal, ROADMAP Q3) flattens.
     desc = SceneDesc()
     mesh = MeshNode()
     mesh.vertices = [Vertex(np.float32(p), np.float32([0, 0, 1]),
                             np.float32([1, 0, 0]), np.zeros(2, np.float32))
                      for p in ([0, 0, 0], [1, 0, 0], [0, 1, 0])]
-    mesh.add_group(MaterialDesc(kind="microfacet metal"), None, None,
-                   [(0, 1, 2)])
+    mesh.add_group(MaterialDesc(kind="velvet"), None, None, [(0, 1, 2)])
     desc.root.add_child(mesh)
-    with pytest.raises(NotImplementedError, match="Q3"):
+    with pytest.raises(ValueError, match="velvet"):
         flatten(desc)
+    from slr_tpu_torch.scene.graph import FTexDesc, SpectrumDesc, STexDesc
+
+    al = [STexDesc(kind="constant", spectrum=SpectrumDesc(
+        kind="library", library_id="Aluminium", library_comp=c))
+        for c in (0, 1)]
+    mesh.groups = [(MaterialDesc(kind="microfacet metal", stex=tuple(al),
+                                 ftex=(FTexDesc(kind="constant", value=0.2),)),
+                    None, None, [(0, 1, 2)])]
+    assert flatten(desc).lobe_kinds_present == (5,)
     e = SceneBuilder()
     lit = e.add_emitter(e.add_matte(e.add_stex_const((0.5,) * 3)),
                         e.add_stex_const((5.0,) * 3))

@@ -109,14 +109,26 @@ def test_entry_points_refuse_cpu_fallback():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         cornell_box_spheres(sphere_res=4)
-    # A material kind whose lobes are not ported yet (ROADMAP Q3).
+    # Scene graphs flatten to CPU tensors; every material kind does now
+    # (here the microfacet metal).
     desc = SceneDesc()
     mesh = MeshNode()
     mesh.vertices = [Vertex(np.float32(p), np.float32([0, 0, 1]),
                             np.float32([1, 0, 0]), np.zeros(2, np.float32))
                      for p in ([0, 0, 0], [1, 0, 0], [0, 1, 0])]
-    mesh.add_group(MaterialDesc(kind="microfacet metal"), None, None,
-                   [(0, 1, 2)])
+    mesh.add_group(_microfacet_metal(), None, None, [(0, 1, 2)])
     desc.root.add_child(mesh)
-    with pytest.raises(NotImplementedError, match="Q3"):
-        flatten(desc)
+    flat = flatten(desc)
+    assert flat.device.type == "cpu"
+    assert flat.lobe_kinds_present == (5,)
+
+
+def _microfacet_metal():
+    from slr_tpu_torch.scene.graph import FTexDesc, SpectrumDesc, STexDesc
+
+    def ior(comp):
+        return STexDesc(kind="constant", spectrum=SpectrumDesc(
+            kind="library", library_id="Aluminium", library_comp=comp))
+
+    return MaterialDesc(kind="microfacet metal", stex=(ior(0), ior(1)),
+                        ftex=(FTexDesc(kind="constant", value=0.2),))
