@@ -62,9 +62,35 @@ caught:
     depth 16 (the analytic rho check, background equal to the sky, both
     kernels launched once per iteration), then the equirectangular camera
     at 256x128 (more than 90% of values above 0).
-12. prints {"kernels": [...]} (launches summed over every path), then, as
+12. pt: the spectral Cornell box through the fixed-depth path tracer
+    (render/pt.py `render`) at 1024x768, spp 2, depth 16, in batches of
+    65,536 lanes: closest-hit launches must be batches x spp x (1 + depth)
+    + alpha recasts, any-hit launches batches x spp x depth; the active
+    rays are counted on the device. Its profile at 256x192, then 64x48
+    card against CPU, and the coherence sort on and off on one batch of
+    camera rays.
+13. pt kernels: both kernels against their plain versions on the second
+    bounce's closest-hit and shadow rays of one sorted 65,536-lane batch,
+    captured through `_trace_core`'s `cast_fns` hook.
+14. pt golden: the grass field of tests/goldens/grass_field_n8.npz through
+    `render` at the golden's settings (>= 98% of pixels within its
+    tolerance, means within 1%).
+15. grad: gradients on the card: the reflectance gradient against its
+    finite difference, the emitter-scale identity, and the per-pixel
+    gradient image through `render_fused` at 256x192 (forward mode)
+    against its finite difference and the linearity in the scale, with
+    seconds forward and backward and the peak memory.
+16. debug: the debug renderer through the CLI on the parity scene at its
+    256x192, in-process (one closest-hit launch) and as `python -m
+    slr_tpu_torch --renderer debug`; the AOV exports against the reference
+    renderer's with tests/test_parity.py's AOV gate.
+17. motion box (ROADMAP C1): a bar that turns 170 degrees over the
+    shutter; both kernels against their plain versions on rays that graze
+    its arc outside the sampled box.
+18. prints {"kernels": [...]} (launches summed over every path), then, as
     the last line, the device line.
 """
+import dataclasses
 import json
 import logging
 import os
@@ -78,6 +104,7 @@ import time
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from slr_tpu_torch.__main__ import main as cli_main
 from slr_tpu_torch.accel import traverse as tv
@@ -126,6 +153,18 @@ SHADE_W, SHADE_H, SHADE_SPP = 1024, 768, 4
 # The environment light alone: a diffuse sphere under a constant sky.
 ENV_SIZE, ENV_SPP, ENV_DEPTH, ENV_RHO = 256, 16, 16, 0.6
 EQUI_W, EQUI_H = 256, 128
+
+# The fixed-depth path tracer (render/pt.py `render`): the spectral Cornell
+# box at its full 1024x768, spp 2, depth 16 (the fixed-depth default), in
+# batches of 65,536 lanes; the grass golden at tests/test_instancing.py's
+# settings; gradients at 256x192 through `render_fused`.
+PT_SPP, PT_DEPTH, PT_BATCH = 2, 16, 65536
+GRASS_GOLDEN = os.path.join(ROOT, "tests", "goldens", "grass_field_n8.npz")
+GRAD_W, GRAD_H, GRAD_DEPTH = 256, 192, 3
+AOV_GOLDENS = {"gnormal": "gnormal", "snormal": "snormal",
+               "stangent": "tangent"}
+# The C1 check: a bar that turns 170 degrees about +y over the shutter.
+BAR_L, BAR_W, BAR_TURN, BAR_RAYS = 1.0, 0.02, 170.0, 64
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
 PEAK_FP32 = 67e12
@@ -1379,6 +1418,457 @@ def phase_env() -> dict:
         rho=rho, background_err=bg_err)
 
 
+# ---------------------------------------------------------------------------
+# Phases 12-17: the fixed-depth path tracer, gradients, the debug renderer
+# ---------------------------------------------------------------------------
+
+def _agreement(a, b, rtol=1e-3, atol=1e-6) -> tuple[float, float, int]:
+    """Share of pixels (lanes) with every channel within rtol / atol, the
+    relative difference of the means, and the count beyond."""
+    close = (np.abs(a - b) <= rtol * np.abs(b) + atol).all(-1)
+    return (float(close.mean()), abs(float(a.mean()) / float(b.mean()) - 1.0),
+            int((~close).sum()))
+
+
+def phase_pt(scene) -> dict:
+    """The spectral Cornell box through `render` at 1024x768, spp 2, depth
+    16: every lane runs all 16 bounces (one closest-hit and one shadow cast
+    each) after its camera cast, in batches of 65,536 lanes."""
+    tpt.render(scene, 128, 96, spp=1, seed=SEED, max_depth=PT_DEPTH)
+    torch.cuda.synchronize()
+    n_pix = WIDTH * HEIGHT
+    batches = -(-n_pix // PT_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    tv.reset_launches()
+    tpt.reset_alpha_recasts()
+    tpt.track_rays(DEV)
+    t0 = time.perf_counter()
+    img = tpt.render(scene, WIDTH, HEIGHT, spp=PT_SPP, seed=SEED,
+                     max_depth=PT_DEPTH, ray_batch=PT_BATCH)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(tv.LAUNCHES)
+    closest_rays, shadow_rays, idle = tpt.RAYS.tolist()
+    tpt.track_rays(None)
+    recasts = tpt.ALPHA_RECASTS["casts"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ksps = n_pix * PT_SPP / secs / 1e3
+    mrays = (closest_rays + shadow_rays) / secs / 1e6
+    lane_casts = (launches["closest_hit"] + launches["any_hit"]) * PT_BATCH
+    bounces = batches * PT_SPP * PT_DEPTH
+    mean = float(img.mean())
+    neg = float((img < 0).float().mean())
+    log(f"[pt] {WIDTH}x{HEIGHT} spp {PT_SPP} depth {PT_DEPTH} spectral "
+        f"Cornell through render: {secs:.3f} s, {ksps:.1f} ksamples/s, "
+        f"{mrays:.2f} Mrays/s of the rays cast ({closest_rays} closest-hit "
+        f"and {shadow_rays} shadow rays of active lanes; "
+        f"{lane_casts / secs / 1e6:.2f} M lanes/s over {lane_casts} lane "
+        f"casts), {batches} batches of {PT_BATCH} lanes, launches "
+        f"{launches}, alpha recasts {recasts}, bounces that began with no "
+        f"active lane {idle} of {bounces}, image mean {mean:.5f}, negative "
+        f"values {neg:.5f}, peak memory {peak:.2f} GiB")
+    log(ascii_view(img))
+    if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(
+            torch.isfinite(img).all()):
+        raise AssertionError("pt image is not finite or has the wrong shape")
+    if not (mean > 0.0 and neg < 0.05):
+        raise AssertionError(f"implausible pt image: mean {mean}, negative "
+                             f"share {neg}")
+    want = {"closest_hit": batches * PT_SPP * (1 + PT_DEPTH) + recasts,
+            "any_hit": batches * PT_SPP * PT_DEPTH, "xform_rays": 0}
+    if launches != want:
+        raise AssertionError(f"pt launch counts {launches} != {want}")
+    return dict(seconds=secs, ksamples_per_s=ksps, mrays_per_s=mrays,
+                launches=launches, rays=[closest_rays, shadow_rays],
+                idle_bounces=idle, bounces=bounces, peak_gib=peak,
+                mean=mean)
+
+
+def phase_pt_profile(scene) -> None:
+    """Where `render`'s time goes: one 256x192 (49,152 lanes, one batch)
+    spp 1 depth 16 render under torch.profiler: device ops and host syncs
+    per bounce, the device's busy share, the kernels' share of it."""
+    kw = dict(spp=1, seed=SEED, max_depth=PT_DEPTH)
+    steps = 1 + PT_DEPTH
+    t0 = time.perf_counter()
+    tpt.render(scene, 256, 192, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        tpt.render(scene, 256, 192, **kw)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    if not dev or busy <= 0.0:
+        raise AssertionError("the profiler recorded no device time")
+    syncs = sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+                for e in prof.events())
+    log(f"[pt profile] 256x192 spp 1 depth {PT_DEPTH}: {wall:.3f} s "
+        f"unprofiled ({wall / steps * 1e3:.2f} ms per cast step, {steps} "
+        f"steps); {len(dev) / steps:.0f} device ops and "
+        f"{syncs / steps:.1f} host syncs per step; device busy {busy:.3f} s "
+        f"= {busy / wall:.3f} of the unprofiled wall time")
+    by_name = {}
+    for e in dev:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.self_device_time_total)
+    for kname in ("closest_hit_kernel", "any_hit_kernel"):
+        n, us = next((v for k, v in by_name.items() if kname in k), (0, 0.0))
+        log(f"[pt profile] {kname}: {n} launches, "
+            f"{us / max(n, 1) / 1e3:.4f} ms each, {us / 1e6 / busy:.3f} of "
+            f"device time")
+    for name, (n, us) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][1])[:6]:
+        log(f"[pt profile]   {us / 1e3:9.3f} ms in {n:6d} launches: "
+            f"{name[:90]}")
+
+
+def phase_pt_check(scene) -> None:
+    """`render` at 64x48 on the card against the CPU (plain versions), with
+    phase_cross_check's statistic; then the coherence sort on the card: one
+    batch of camera rays traced with and without it."""
+    kw = dict(spp=PT_SPP, seed=SEED, max_depth=PT_DEPTH)
+    t0 = time.perf_counter()
+    gpu = tpt.render(scene, CHECK_W, CHECK_H, **kw).cpu().numpy()
+    t1 = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu = tpt.render(scene.to("cpu"), CHECK_W, CHECK_H, device="cpu",
+                     **kw).numpy()
+    t2 = time.perf_counter()
+    close, rel, n_far = _agreement(gpu, cpu)
+    log(f"[pt check] {CHECK_W}x{CHECK_H} spp {PT_SPP} depth {PT_DEPTH}: card "
+        f"{t1 - t0:.2f} s, CPU {t2 - t1:.2f} s; pixels within rtol 1e-3 "
+        f"{close:.6f} ({n_far} beyond), means {gpu.mean():.6f} / "
+        f"{cpu.mean():.6f} (rel {rel:.2e})")
+    if close < 0.98 or rel >= 0.01:
+        raise AssertionError("the card's render disagrees with the CPU's")
+    pid = torch.arange(PT_BATCH, device=DEV)
+    sid = torch.zeros_like(pid)
+    rays = tpt._camera_ray(scene, pid, sid, SEED, WIDTH, HEIGHT)
+    args = (scene, rays.o, rays.d, pid, sid, SEED)
+    a = tpt.trace_radiance(*args, max_depth=6, sort_rays=False).cpu().numpy()
+    b = tpt.trace_radiance(*args, max_depth=6, sort_rays=True).cpu().numpy()
+    close, rel, n_far = _agreement(a, b, rtol=1e-4, atol=1e-5)
+    n_bits = int((a != b).any(-1).sum())
+    log(f"[pt check] sort_rays, {PT_BATCH} camera rays, depth 6: lanes "
+        f"within rtol 1e-4, atol 1e-5 {close:.6f} ({n_far} beyond, {n_bits} "
+        f"differ in any bit), means rel {rel:.2e}")
+    # A lane can differ only where a hit ties at equal t in two entries,
+    # whose order the sort changes: at most 0.1% of the lanes.
+    if close < 0.999 or rel >= 1e-4:
+        raise AssertionError("sort_rays changes the card's trace")
+
+
+def phase_pt_kernels(scene) -> dict:
+    """Both kernels against their plain versions on the second bounce of
+    `_trace_core` at 65,536 lanes (the first batch's camera rays), sorted as
+    `render` sorts them: its closest-hit and its shadow cast, captured
+    through the `cast_fns` hook."""
+    seen = {"closest": [], "shadow": []}
+
+    def isect(*args, **kw):
+        seen["closest"].append((args, kw))
+        return tpt.scene_intersect_alpha(*args, **kw)
+
+    def occl(*args, **kw):
+        seen["shadow"].append((args, kw))
+        return tpt.scene_occluded(*args, **kw)
+
+    pid = torch.arange(PT_BATCH, device=DEV)
+    sid = torch.zeros_like(pid)
+    rays = tpt._camera_ray(scene, pid, sid, SEED, WIDTH, HEIGHT)
+    tpt._trace_core(scene, rays.o, rays.d, pid, sid, SEED, 2,
+                    sort_rays=True, cast_fns=(isect, occl))
+    (_, o, d), kw = seen["closest"][2]
+    (_, o_s, d_s, _, tmax_s), kw_s = seen["shadow"][1]
+    pt = scene.pallas_tris
+    act, act_s = kw["active"], kw_s["active"]
+    log(f"[pt kernels] second bounce of {PT_BATCH} lanes: "
+        f"{int(act.sum())} closest-hit and {int(act_s.sum())} shadow rays "
+        f"active, {-(-PT_BATCH // tv._auto_rb(pt))} blocks of "
+        f"{tv._auto_rb(pt)}")
+    return {"closest_hit": check_closest("pt bounce 2", pt, o, d,
+                                         float("inf"), act),
+            "any_hit": check_any("pt shadow 2", pt, o_s, d_s, tmax_s, act_s)}
+
+
+def phase_pt_golden() -> dict:
+    """The port-built grass field (instances, motion blur) through `render`
+    at tests/test_instancing.py's golden settings, against its golden."""
+    scene = grass_field(n_side=8, blade_segments=3, animated_fraction=0.25)
+    torch.cuda.synchronize()
+    tv.reset_launches()
+    t0 = time.perf_counter()
+    img = tpt.render(scene, 48, 36, spp=32, max_depth=5, seed=11)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(tv.LAUNCHES)
+    gold = np.load(GRASS_GOLDEN)["img"]
+    close, rel, n_far = _agreement(img.cpu().numpy(), gold, atol=1e-4)
+    log(f"[pt golden] grass field n8, 48x36 spp 32 depth 5 seed 11: "
+        f"{secs:.3f} s, launches {launches}; pixels within rtol 1e-3, atol "
+        f"1e-4 of tests/goldens/grass_field_n8.npz {close:.6f} ({n_far} "
+        f"beyond), means rel {rel:.2e}")
+    want = {"closest_hit": 32 * 6, "any_hit": 32 * 5, "xform_rays": 0}
+    if launches != want:
+        raise AssertionError(f"golden launch counts {launches} != {want}")
+    if close < 0.98 or rel >= 0.01:
+        raise AssertionError("the grass render disagrees with its golden")
+    return dict(seconds=secs, launches=launches, close=close)
+
+
+def _with_row(scene, row, v):
+    """stex.value[row, :] = v in a copy of the scene, differentiable in v."""
+    val = scene.stex.value
+    sel = (torch.arange(val.shape[0], device=val.device) == row)[:, None]
+    return dataclasses.replace(scene, stex=dataclasses.replace(
+        scene.stex, value=torch.where(sel, v, val)))
+
+
+def _fan(seed, n, spread):
+    """tests/test_grad.py's ray fans from (0, 1.2, 1) in the box."""
+    rs = np.random.RandomState(seed)
+    o = np.array([[0.0, 1.2, 1.0]] * n)
+    if spread:
+        o = o + rs.randn(n, 3) * spread
+    d = rs.randn(n, 3)
+    d = torch.nn.functional.normalize(_cuda_tensor(d), dim=-1)
+    return _cuda_tensor(o), d
+
+
+def phase_grad() -> dict:
+    """Gradients on the card (tests/test_grad.py's Cornell box without the
+    metal and glass spheres): the scalar finite-difference check, the
+    emitter-scale identity, and the per-pixel gradient image w.r.t. the
+    emitter scale through render_fused at 256x192, spp 1, depth 3."""
+    scene = cornell_box_spheres(sphere_res=6, use_bvh=False, metal=False,
+                                glass=False)
+    tv.reset_launches()
+
+    def mean_radiance(sc, o, d, depth):
+        n = o.shape[0]
+        pid = torch.arange(n, device=DEV)
+        return tpt.trace_radiance(sc, o, d, pid, torch.zeros_like(pid), 0,
+                                  max_depth=depth).mean()
+
+    o, d = _fan(0, 256, 0.05)
+
+    def f(v):
+        return mean_radiance(_with_row(scene, 2, v), o, d, 4)
+
+    v = torch.tensor(0.75, device=DEV, requires_grad=True)
+    (g,) = torch.autograd.grad(f(v), v)
+    with torch.no_grad():
+        fd_s = float((f(torch.tensor(0.76, device=DEV))
+                      - f(torch.tensor(0.74, device=DEV))) / 0.02)
+    g = float(g)
+    fd_rel = abs(g / fd_s - 1.0)
+    log(f"[grad] d mean radiance / d white-wall reflectance: autograd "
+        f"{g:.6f}, central difference {fd_s:.6f} (rel {fd_rel:.4f}, gate "
+        f"0.08)")
+    if not (g > 0 and fd_rel <= 0.08):
+        raise AssertionError("the reflectance gradient disagrees with its "
+                             "finite difference")
+    o, d = _fan(1, 128, 0.0)
+    s = torch.tensor(30.0, device=DEV, requires_grad=True)
+    val = mean_radiance(_with_row(scene, 4, s), o, d, 3)
+    (gs,) = torch.autograd.grad(val, s)
+    gs, val = float(gs), float(val.detach())
+    rel = abs(gs * 30.0 / val - 1.0)
+    log(f"[grad] emitter scale: grad {gs:.7f}, f / s {val / 30.0:.7f} (rel "
+        f"{rel:.2e}, gate 1e-4)")
+    if rel > 1e-4:
+        raise AssertionError("the emitter gradient is not f / s")
+
+    def image(v):
+        return tpt.render_fused(_with_row(scene, 4, v), GRAD_W, GRAD_H,
+                                spp=1, max_depth=GRAD_DEPTH)
+
+    v0 = torch.tensor(30.0, device=DEV)
+    image(v0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        img = image(v0)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    v = v0.clone().requires_grad_(True)
+    t0 = time.perf_counter()
+    out = image(v)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    (g_sum,) = torch.autograd.grad(out.sum(), v)
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t0 - t_fwd
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    del out
+    t_jvp = []
+    for _ in range(2):          # the first call includes one-time set-up
+        t0 = time.perf_counter()
+        with fwAD.dual_level():
+            _, dimg = fwAD.unpack_dual(image(fwAD.make_dual(
+                v0, torch.tensor(1.0, device=DEV))))
+        torch.cuda.synchronize()
+        t_jvp.append(time.perf_counter() - t0)
+    with torch.no_grad():
+        fd = (image(v0 + 0.5) - image(v0 - 0.5)) / 1.0
+    dimg, fd, img = (x.cpu().numpy() for x in (dimg, fd, img))
+    atol = 1e-5 * float(np.abs(fd).max())
+    far_fd = int((np.abs(dimg - fd) > 2e-3 * np.abs(fd) + atol).sum())
+    far_lin = int((np.abs(dimg - img / 30.0)
+                   > 2e-3 * np.abs(img / 30.0) + atol).sum())
+    sum_rel = abs(float(g_sum) / float(dimg.sum()) - 1.0)
+    launches = dict(tv.LAUNCHES)
+    log(f"[grad] d image / d emitter scale at {GRAD_W}x{GRAD_H} spp 1 depth "
+        f"{GRAD_DEPTH} through render_fused: forward without a graph "
+        f"{t_plain:.3f} s; forward with the graph {t_fwd:.3f} s, backward "
+        f"{t_bwd:.3f} s, peak memory above the scene "
+        f"{peak:.3f} GiB; forward mode (the per-pixel map) {t_jvp[0]:.3f} "
+        f"s, again {t_jvp[1]:.3f} s; "
+        f"values beyond rtol 2e-3 of the FD {far_fd}, of image / scale "
+        f"{far_lin} (of {dimg.size}); reverse-mode gradient of the image sum "
+        f"against the map's sum rel {sum_rel:.2e}; launches {launches}")
+    if far_fd or far_lin or not np.isfinite(dimg).all() \
+            or not np.abs(dimg).max() > 1e-4 or sum_rel > 1e-3:
+        raise AssertionError("the gradient image disagrees with its finite "
+                             "difference")
+    return dict(fd_rel=fd_rel, emitter_rel=rel,
+                forward_s=t_plain, forward_graph_s=t_fwd, backward_s=t_bwd,
+                jvp_s=t_jvp[1], peak_gib=peak, launches=launches)
+
+
+def aov_gates(out, tag) -> None:
+    """tests/test_parity.py:160-183 on the CLI's AOV exports (0.5 n + 0.5 in
+    8 bits) against the reference renderer's: mean difference below 2.5,
+    more than 0.96 of the pixels within 8."""
+    for name, gold_name in AOV_GOLDENS.items():
+        ours = read_bmp(os.path.join(out, f"{name}.bmp"))
+        gold = read_bmp(os.path.join(ROOT, "tests", "goldens",
+                                     f"ref_parity_aov_{gold_name}.bmp"))
+        d = np.abs(ours - gold)
+        within = float((d.max(axis=-1) <= 8.0).mean())
+        log(f"[{tag}] {name}: mean difference {d.mean():.4f} < 2.5, pixels "
+            f"within 8 {within:.4f} > 0.96")
+        if not (d.mean() < 2.5 and within > 0.96):
+            raise AssertionError(f"the {name} AOV fails its golden gate")
+
+
+def phase_debug(tmp) -> dict:
+    """The debug renderer through the CLI on the parity scene at its 256x192:
+    its `main` in-process (launches counted), then `python -m
+    slr_tpu_torch` as a program; both sets of exports gated."""
+    out = os.path.join(tmp, "debug")
+    torch.cuda.synchronize()
+    tv.reset_launches()
+    res = cli_main([PARITY, "--renderer", "debug", "--format", "bmp",
+                    "--out", out])
+    launches = dict(tv.LAUNCHES)
+    log(f"[debug] main in-process: {res['width']}x{res['height']}, scene "
+        f"load {res['load_seconds']:.3f} s, AOVs {res['seconds']:.3f} s, "
+        f"launches {launches}")
+    if launches != {"closest_hit": 1, "any_hit": 0, "xform_rays": 0}:
+        raise AssertionError(f"debug launch counts {launches}")
+    aov_gates(out, "debug")
+    out2 = os.path.join(tmp, "debug_module")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "slr_tpu_torch", PARITY, "--renderer",
+         "debug", "--format", "bmp", "--out", out2],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m slr_tpu_torch --renderer debug "
+                             f"failed:\n{proc.stderr[-4000:]}")
+    log(f"[debug] python -m slr_tpu_torch --renderer debug: exit 0 in "
+        f"{secs:.2f} s, wrote {sorted(os.listdir(out2))}")
+    aov_gates(out2, "debug module")
+    return dict(seconds=res["seconds"], module_seconds=secs,
+                launches=launches)
+
+
+def turning_bar(builder_cls):
+    """A static ground quad and one bar (2 BAR_L x 2 BAR_W in the xz plane,
+    at y = 0.5) that turns BAR_TURN degrees about +y over the shutter: the
+    top of its arc (at 90 degrees) lies between two of the 17 shutter
+    fractions its box is sampled at, outside the box."""
+    def turn(deg):
+        a = np.radians(deg)
+        m = np.eye(4, dtype=np.float32)
+        m[0, 0], m[0, 2], m[2, 0], m[2, 2] = (np.cos(a), np.sin(a),
+                                              -np.sin(a), np.cos(a))
+        m[1, 3] = 0.5
+        return m
+
+    b = builder_cls()
+    mat = b.add_matte(b.add_stex_const((0.5, 0.5, 0.5)))
+    up = np.tile(np.float32([0, 1, 0]), (4, 1))
+    tx = np.tile(np.float32([1, 0, 0]), (4, 1))
+    uv = np.zeros((4, 2), np.float32)
+    quad = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    b.add_mesh(np.float32([[-3, 0, -3], [3, 0, -3], [3, 0, 3], [-3, 0, 3]]),
+               up, tx, uv, quad, mat)
+    bid = b.begin_blas()
+    b.add_mesh(np.float32([[-BAR_L, 0, -BAR_W], [BAR_L, 0, -BAR_W],
+                           [BAR_L, 0, BAR_W], [-BAR_L, 0, BAR_W]]),
+               up, tx, uv, quad[:, ::-1].copy(), mat)
+    b.end_blas()
+    b.add_instance(bid, turn(0.0), turn(BAR_TURN))
+    b.set_camera_perspective(np.eye(4, dtype=np.float32), 1.0, 0.5)
+    return b.build(use_bvh=False)
+
+
+def turning_bar_rays():
+    """(o, d, f) numpy: one block of rays straight down, BAR_RAYS onto the
+    bar at seeded shutter fractions (so the block visits its entry) and
+    BAR_RAYS at the arc's top at its shutter fraction, 2e-4 to 1.4e-3
+    inside the bar's tip, beyond the sampled box."""
+    n = BAR_RAYS
+    rs = np.random.RandomState(0)
+    f_box = rs.rand(n).astype(np.float32)
+    s = rs.uniform(-0.9, 0.9, n)
+    a = np.radians(f_box * BAR_TURN)
+    on_bar = np.stack([s * np.cos(a), np.full(n, 0.5), -s * np.sin(a)], 1)
+    tip = np.stack([np.zeros(n), np.full(n, 0.5),
+                    -(BAR_L - np.linspace(2e-4, 1.4e-3, n))], 1)
+    o = (np.concatenate([on_bar, tip]) + [0.0, 2.0, 0.0]).astype(np.float32)
+    d = np.tile(np.float32([0, -1, 0]), (2 * n, 1))
+    f = np.concatenate([f_box, np.full(n, 90.0 / BAR_TURN)]).astype(
+        np.float32)
+    return o, d, f
+
+
+def phase_motion_box() -> dict:
+    """ROADMAP C1 on the card: both kernels against their plain versions on
+    the turning bar's rays, the grazing ones included (their cast boxes are
+    widened by `motion_slack`)."""
+    scene = turning_bar(SceneBuilder).to(DEV)
+    pt = scene.pallas_tris
+    o, d, f = (_cuda_tensor(x) for x in turning_bar_rays())
+    n = BAR_RAYS
+    closest = check_closest("turning bar", pt, o, d, float("inf"), None, f)
+    tmax = torch.full((2 * n,), 2.4, device=DEV)
+    anyhit = check_any("turning bar", pt, o, d, tmax, None, f)
+    hit = tv.intersect_pallas(scene.geometry, pt, o, d, f=f,
+                              instances=scene.instances)
+    occ = tv.anyhit_pallas(scene.geometry, pt, o, d, tmax=tmax, f=f)
+    graze_hit = int((hit.inst[n:] == 0).sum())
+    graze_occ = int(occ[n:].sum())
+    slack = float(tv.motion_slack(pt.boxes, pt.entry_inst,
+                                  pt.inst_trs).max())
+    log(f"[motion box] the bar's box widened by {slack:.5f}; "
+        f"of {n} rays at the arc's top, beyond the sampled box: closest hit "
+        f"on the bar {graze_hit}, occluded {graze_occ}")
+    if graze_hit != n or graze_occ != n:
+        raise AssertionError("the kernels miss the turning bar's arc")
+    return dict(closest_hit=closest, any_hit=anyhit)
+
+
 _LAP = [time.perf_counter()]
 
 
@@ -1445,8 +1935,25 @@ def main() -> None:
     env = phase_env()
     lap("env")
 
+    pt_scene = cornell_box_spheres(spectral=True)
+    pt_path = phase_pt(pt_scene)
+    phase_pt_profile(pt_scene)
+    phase_pt_check(pt_scene)
+    lap("pt and its checks")
+    pt_kernels = phase_pt_kernels(pt_scene)
+    del pt_scene
+    pt_golden = phase_pt_golden()
+    lap("pt kernels and golden")
+    grad = phase_grad()
+    lap("grad")
+    with tempfile.TemporaryDirectory() as tmp:
+        debug = phase_debug(tmp)
+    motion = phase_motion_box()
+    lap("debug and motion box")
+
     paths = {"cornell": main_path, "grass": g_main, "cli": cli,
-             "shading": shading, "env": env}
+             "shading": shading, "env": env, "pt": pt_path,
+             "pt_golden": pt_golden, "grad": grad, "debug": debug}
     kernels = []
     for name in ("closest_hit", "any_hit"):
         kernels.append(dict(
@@ -1469,6 +1976,10 @@ def main() -> None:
         alpha_recasts=shading["recasts"],
         recast_cast_ms=s_kernels["recast_cast_ms"],
         **{f"{k} set": s_kernels[k] for k in ("camera", "recast", "shadow")})
+    for k in kernels:
+        k["pt"] = dict(launches=pt_path["launches"][k["name"]],
+                       **pt_kernels[k["name"]])
+        k["motion_box"] = motion[k["name"]]
     # The instance transform: on the main paths it runs as a device function
     # of the two kernels above, whose counted transforms show it; launched
     # on its own (never by a cast) it is held against its plain version.
@@ -1482,8 +1993,10 @@ def main() -> None:
             + g_main["work"]["any_hit_transforms"]),
         library_ms=None, **g_timings["xform_rays"]))
     if not all(k["launches_by_path"][p] > 0 for k in kernels[:2]
-               for p in ("cornell", "grass", "cli", "env")) \
-            or not kernels[0]["launches_by_path"]["shading"] > 0:
+               for p in ("cornell", "grass", "cli", "env", "pt", "pt_golden",
+                         "grad")) \
+            or not kernels[0]["launches_by_path"]["shading"] > 0 \
+            or not kernels[0]["launches_by_path"]["debug"] > 0:
         raise AssertionError("a kernel of the main paths was never launched")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -2,16 +2,19 @@
 
     python -m slr_tpu_torch <scene.txt> [--spp N] [--out DIR] [--spectral]
                             [--width W] [--height H] [--max-depth D]
-                            [--format png|bmp] [--resume] [--check]
-                            [--profile DIR] [--cpu] [-v]
+                            [--renderer pt|debug] [--format png|bmp]
+                            [--resume] [--check] [--profile DIR] [--cpu] [-v]
 
 Renders progressive power-of-two exports (000.png, 001.png, ... at 1, 2,
 4, ... spp) of the Kahan-summed film, scaled by the scene's brightness, and
 after each export a checkpoint (`checkpoint.npz`) that `--resume` continues
 from. Runs on the CUDA device, or raises without one; `--cpu` runs the
-plain PyTorch versions on the host. The path tracer is `render_wavefront`;
-the debug, BPT and photon-mapping renderers and scene sharding are not
-ported yet.
+plain PyTorch versions on the host. The path tracer is `render_wavefront`.
+The debug renderer (`--renderer debug`) writes the first hit's geometric
+normal, shading normal, shading tangent and distance instead (gnormal,
+snormal, stangent, distance), normals and tangents encoded as 0.5 n + 0.5
+and distance over its largest value. The BPT and photon-mapping renderers
+and scene sharding are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import os
 import time
 
 # Renderers and options of the reference CLI that wait for their ROADMAP item.
-_UNPORTED = {"debug": "A12", "bpt": "A14", "sppm": "A15", "amcmcppm": "A15"}
+_UNPORTED = {"bpt": "A14", "sppm": "A15", "amcmcppm": "A15"}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -37,7 +40,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--renderer",
                     choices=("pt", "bpt", "debug", "sppm", "amcmcppm"),
                     default=None, help="override the scene's renderer "
-                    "(only pt is ported)")
+                    "(pt and debug are ported)")
     ap.add_argument("--format", choices=("png", "bmp"), default="png",
                     help="image output format (bmp matches the reference)")
     ap.add_argument("--max-depth", type=int, default=100,
@@ -102,10 +105,14 @@ def main(argv: list[str] | None = None) -> dict:
     height = args.height or settings["height"]
     brightness = settings["brightness"]
     method = (args.renderer or renderer_cfg.get("method", "PT")).lower()
+    if method == "debug":
+        os.makedirs(args.out, exist_ok=True)
+        return _write_aovs(scene, width, height, args.out, ext, save_img,
+                           device, load_s)
     if method != "pt":
         raise NotImplementedError(
             f"the scene's {method} renderer is not ported to slr_tpu_torch "
-            f"yet (ROADMAP {_UNPORTED.get(method, 'A12-A15')})")
+            f"yet (ROADMAP {_UNPORTED.get(method, 'A14-A15')})")
     spp = args.spp or int(renderer_cfg.get("samples", 16))
     rng_seed = int(settings.get("rngSeed", 0)) & 0xFFFFFFFF
     os.makedirs(args.out, exist_ok=True)
@@ -176,6 +183,32 @@ def main(argv: list[str] | None = None) -> dict:
               f"cast (2 x {lanes} lanes x iterations)")
     return dict(load_seconds=load_s, width=width, height=height, spp=done,
                 lanes=lanes, passes=passes)
+
+
+def _write_aovs(scene, width, height, out, ext, save_img, device,
+                load_s) -> dict:
+    """The debug renderer's four images, encoded as the reference's CLI
+    encodes them."""
+    import numpy as np
+
+    from .render.debug import render_aovs
+
+    t0 = time.perf_counter()
+    aov = render_aovs(scene, width, height, device=device)
+    aov = type(aov)(*(x.cpu().numpy() for x in aov))
+    seconds = time.perf_counter() - t0
+    files = []
+    for name, x in (("gnormal", aov.g_normal), ("snormal", aov.s_normal),
+                    ("stangent", aov.s_tangent)):
+        files.append(os.path.join(out, f"{name}.{ext}"))
+        save_img(files[-1], x * 0.5 + 0.5)
+    dist = aov.distance
+    dmax = dist.max() or 1.0
+    files.append(os.path.join(out, f"distance.{ext}"))
+    save_img(files[-1], np.repeat((dist / dmax)[..., None], 3, axis=-1))
+    print(f"AOVs written to {out} ({seconds:.2f}s)")
+    return dict(load_seconds=load_s, width=width, height=height,
+                seconds=seconds, files=files)
 
 
 if __name__ == "__main__":

@@ -121,6 +121,8 @@ class PallasTris:
     n_valid: (NC,) int32 derived: the triangles each chunk holds, which
         fill its first slots (the rest is zero padding)
     instanced: whether any entry is instanced (host flag, set at build)
+    cast_boxes: (NE, 8) f32 derived: the boxes the casts cull with, `boxes`
+        with each moving instance's entries widened (see `motion_slack`)
     """
 
     tris: Tensor
@@ -132,6 +134,7 @@ class PallasTris:
     tri24: Tensor = None
     n_valid: Tensor = None
     instanced: bool = None
+    cast_boxes: Tensor = None
 
     def __post_init__(self):
         if self.entry_chunk is None:
@@ -148,6 +151,15 @@ class PallasTris:
         if self.n_valid is None:
             self.n_valid = (self.remap.reshape(self.n_chunks, -1) >= 0).sum(
                 1, dtype=torch.int32)
+        if self.cast_boxes is None:
+            self.cast_boxes = self.boxes
+            if self.instanced:
+                slack = motion_slack(self.boxes, self.entry_inst,
+                                     self.inst_trs)
+                self.cast_boxes = torch.cat(
+                    [self.boxes[:, 0:3] - slack[:, None],
+                     self.boxes[:, 3:6] + slack[:, None], self.boxes[:, 6:]],
+                    dim=1)
 
     @property
     def chunk(self) -> int:
@@ -160,6 +172,43 @@ class PallasTris:
     @property
     def n_entries(self) -> int:
         return self.boxes.shape[0]
+
+
+def motion_slack(boxes: Tensor, entry_inst: Tensor,
+                 inst_trs: Tensor, steps: int = 16) -> Tensor:
+    """(NE,) f32: how far an entry's triangles can stray out of its box.
+
+    The box of a moving instance's entry is the union of its local box's
+    corners transformed at `steps` + 1 shutter fractions (`steps` = 1 for an
+    instance whose two transforms are nearly equal). Between two of them a
+    corner moves along p(f) = T(f) + R(f) (S(f) * c), with T and S linear
+    and R a slerp at angular speed w = 2 theta; its chord lies in the box,
+    and it strays from the chord by at most h^2 / 8 max|p''| for a step h,
+    with |p''| <= w^2 |S c| + 2 w |(S1 - S0) c|. |S c| is at most the
+    distance from T0 or T1 to the box's farthest corner, |(S1 - S0) c| that
+    from T0 times the largest relative change of scale. A ray that misses
+    the box so widened misses the triangles at every shutter fraction.
+    Entries of static instances and of the static triangles get 0.
+    Computed in float64, rounded up, plus 1e-6 (1 + the box's largest
+    coordinate) for the float32 rounding of the widened faces."""
+    inst = entry_inst.to(torch.int64)
+    row = inst_trs[torch.clamp(inst, min=0)].to(torch.float64)
+    box = boxes[:, 0:6].to(torch.float64)
+    t0, s0, t1, s1 = row[:, 0:3], row[:, 7:10], row[:, 10:13], row[:, 17:20]
+    w = 2.0 * row[:, 20]
+    sel = torch.tensor([[(i >> a) & 1 for a in range(3)] for i in range(8)],
+                       dtype=torch.bool, device=boxes.device)
+    corners = torch.where(sel[None], box[:, None, 3:6], box[:, None, 0:3])
+    d0 = (corners - t0[:, None]).norm(dim=-1).amax(1)
+    d1 = (corners - t1[:, None]).norm(dim=-1).amax(1)
+    rel = ((s1 - s0).abs() / s0.abs()).amax(1)
+    top = w * w * torch.maximum(d0, d1) + 2.0 * w * rel * d0
+    floor = 1e-6 * (1.0 + box.abs().amax(1))
+    one_step = top / 8.0
+    slack = torch.where(one_step <= floor, one_step, top / (8.0 * steps ** 2))
+    slack = torch.nan_to_num(slack * (1.0 + 1e-3) + floor, nan=float("inf"))
+    moving = (inst >= 0) & (row[:, 0:10] != row[:, 10:20]).any(1)
+    return torch.where(moving, slack, 0.0).to(torch.float32)
 
 
 def build_super_boxes(boxes: np.ndarray, g: int = 16,
@@ -669,6 +718,12 @@ def _entry_tables(pt: PallasTris, rays: Tensor, wl2: Tensor, k: int):
     return ch, inst, pt.tri24[ch][:, None], line
 
 
+def _valid_slots(pt: PallasTris, ch: Tensor, tk: Tensor) -> Tensor:
+    """The rows of `tk` up to the most triangles any chunk of `ch` holds:
+    the slots past a chunk's triangles are zero rows, which never hit."""
+    return tk[:, :, :max(int(pt.n_valid[ch].max()), 1)]
+
+
 def closest_hit_plain(rays: Tensor, wl: Tensor, cnt: Tensor,
                       pt: PallasTris) -> tuple[Tensor, Tensor, Tensor]:
     """The closest-hit kernel's function in plain PyTorch: every worklist
@@ -683,7 +738,7 @@ def closest_hit_plain(rays: Tensor, wl: Tensor, cnt: Tensor,
     chunk = pt.chunk
     for k in range(int(cnt.max()) if nb else 0):
         ch, inst, tk, line = _entry_tables(pt, rays, wl2, k)
-        through, den, num = _plucker_terms(line, tk)
+        through, den, num = _plucker_terms(line, _valid_slots(pt, ch, tk))
         ok = den.abs() > 1e-12
         t = num / torch.where(ok, den, 1.0)
         hit = (through & ok & (t >= tmin) & (t < best[..., None])
@@ -704,8 +759,8 @@ def any_hit_plain(rays: Tensor, wl: Tensor, cnt: Tensor,
     occ = torch.zeros((nb, rb), dtype=torch.bool, device=rays.device)
     wl2 = wl.reshape(nb, -1).to(torch.int64)
     for k in range(int(cnt.max()) if nb else 0):
-        _, _, tk, line = _entry_tables(pt, rays, wl2, k)
-        through, den, num = _plucker_terms(line, tk)
+        ch, _, tk, line = _entry_tables(pt, rays, wl2, k)
+        through, den, num = _plucker_terms(line, _valid_slots(pt, ch, tk))
         lo = num - tmin * den
         hi = num - tmax * den
         hit = through & (lo * hi <= 0) & (den.abs() > 1e-12) & (tmax >= tmin)
@@ -758,7 +813,8 @@ def _check_kernel_args(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
     ne = pt.n_entries
     want = [(rays, torch.float32, (nb, ROWS, rb)),
             (wl, torch.int32, (nb * ne,)), (wtn, torch.float32, (nb * ne,)),
-            (cnt, torch.int32, (nb,)), (pt.boxes, torch.float32, (ne, 8)),
+            (cnt, torch.int32, (nb,)),
+            (pt.cast_boxes, torch.float32, (ne, 8)),
             (pt.entry_chunk, torch.int32, (ne,)),
             (pt.entry_inst, torch.int32, (ne,)),
             (pt.inst_trs, torch.float32, (pt.inst_trs.shape[0], 24)),
@@ -820,7 +876,7 @@ def closest_hit(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
     best_idx = torch.empty((nb, rb), dtype=torch.int32, device=rays.device)
     best_inst = torch.empty((nb, rb), dtype=torch.int32, device=rays.device)
     code = lib.slr_closest_hit(
-        _ptr(rays), _ptr(wl), _ptr(wtn), _ptr(cnt), _ptr(pt.boxes),
+        _ptr(rays), _ptr(wl), _ptr(wtn), _ptr(cnt), _ptr(pt.cast_boxes),
         _ptr(pt.entry_chunk), _ptr(pt.entry_inst), _ptr(pt.inst_trs),
         _ptr(pt.tri24), _ptr(best_t), _ptr(best_idx), _ptr(best_inst),
         _ptr(pt.n_valid), _ptr(tests), _ptr(xforms), nb, rb, ne, pt.chunk,
@@ -858,7 +914,7 @@ def any_hit(rays: Tensor, wl: Tensor, wtn: Tensor, cnt: Tensor,
     lib = _library()
     occ = torch.empty((nb, rb), dtype=torch.int32, device=rays.device)
     code = lib.slr_any_hit(
-        _ptr(rays), _ptr(wl), _ptr(wtn), _ptr(cnt), _ptr(pt.boxes),
+        _ptr(rays), _ptr(wl), _ptr(wtn), _ptr(cnt), _ptr(pt.cast_boxes),
         _ptr(pt.entry_chunk), _ptr(pt.entry_inst), _ptr(pt.inst_trs),
         _ptr(pt.tri24), _ptr(occ), _ptr(pt.n_valid), _ptr(tests),
         _ptr(xforms), nb, rb, ne, pt.chunk, _stream(rays.device), _ptr(ran),
@@ -931,12 +987,16 @@ def prepare_cast(pt: PallasTris, o: Tensor, d: Tensor, tmin, tmax,
                  f: Tensor | None = None):
     """Ranges, exit clamp, packed rays and worklists for one cast.
     Returns (rays, wl, cnt, wtn, tmax_a)."""
+    # The traversal stays outside any autograd graph: hits are discrete.
+    o, d = o.detach(), d.detach()
+    if isinstance(tmax, Tensor):
+        tmax = tmax.detach()
     r = o.shape[0]
     rb = rb or _auto_rb(pt)
     tmin_a, tmax_a = _ray_ranges(r, tmin, tmax, active, o.device)
-    tmax_a = _scene_exit_clamp(o, d, tmax_a, pt.boxes)
+    tmax_a = _scene_exit_clamp(o, d, tmax_a, pt.cast_boxes)
     rays, _ = _pack_rays(o, d, tmin_a, tmax_a, rb, f)
-    wl, cnt, wtn = _chunk_worklist(rays, pt.boxes)
+    wl, cnt, wtn = _chunk_worklist(rays, pt.cast_boxes)
     return rays, wl, cnt, wtn, tmax_a
 
 

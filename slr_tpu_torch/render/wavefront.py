@@ -30,16 +30,16 @@ from ..bsdf.bsdf import (
     gather_lobes,
     is_emissive,
 )
-from ..camera.perspective import sample_camera_rays, sample_camera_rays_equirect
 from ..core import rng
 from ..core.device import resolve_device
 from ..core.math3d import dot, frame_from_local, frame_to_local
 from ..core.rng import Decision
 from ..core.sampling import pdf_continuous_2d, power_heuristic, sample_continuous_2d
-from ..scene.types import CameraKind, FlatScene
+from ..scene.types import FlatScene
 from ..spectrum.rgb import importance
 from .pt import (
     _area_light_prob,
+    _camera_ray,
     _env_direction,
     _env_radiance,
     _env_uv_from_direction,
@@ -82,21 +82,6 @@ class LaneState(NamedTuple):
 
 def _work_pixel_sample(work: Tensor, n_pix: int, sample_offset: int):
     return work % n_pix, sample_offset + work // n_pix
-
-
-def _camera_ray(scene: FlatScene, pid: Tensor, sid: Tensor, seed: int,
-                width: int, height: int):
-    px = (pid % width).to(torch.float32)
-    py = (pid // width).to(torch.float32)
-    jx = rng.uniform(seed, pid, sid, 0, Decision.PIXEL_X)
-    jy = rng.uniform(seed, pid, sid, 0, Decision.PIXEL_Y)
-    if scene.camera.kind == CameraKind.EQUIRECTANGULAR:   # no lens randoms
-        return sample_camera_rays_equirect(scene.camera, px + jx, py + jy,
-                                           width, height)
-    lx = rng.uniform(seed, pid, sid, 0, Decision.LENS_U)
-    ly = rng.uniform(seed, pid, sid, 0, Decision.LENS_V)
-    return sample_camera_rays(scene.camera, px + jx, py + jy, width, height,
-                              lx, ly)
 
 
 def _fresh_sample(scene: FlatScene, pid: Tensor, sid: Tensor, seed: int,

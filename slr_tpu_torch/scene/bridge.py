@@ -5,8 +5,8 @@ same arrays in the tests.
 dataclasses (flax struct nodes) or NamedTuples — and builds the port's
 tables from them: each array leaf becomes a tensor via numpy, static fields
 are copied. An instanced scene comes across whole: the extended chunk
-table (`entry_inst`, `inst_trs`; the port derives `tri24`, `n_valid` and
-the `instanced` flag), the `Instances` rows (not the reference's TLAS / BLAS
+table (`entry_inst`, `inst_trs`; the port derives `tri24`, `n_valid`,
+`cast_boxes` and the `instanced` flag), the `Instances` rows (not the reference's TLAS / BLAS
 node arena, which the port has no fields for) and `n_static`.
 It imports nothing of the reference package or of JAX; any object with the
 same field names works.
@@ -47,7 +47,7 @@ _STATIC = {"n_static", "lobe_kinds_present", "has_env", "has_alpha",
 
 # Port-only fields the port derives itself.
 _DERIVED = {(PallasTris, "tri24"), (PallasTris, "n_valid"),
-            (PallasTris, "instanced")}
+            (PallasTris, "instanced"), (PallasTris, "cast_boxes")}
 
 
 def _field_names(cls) -> list[str]:

@@ -97,7 +97,10 @@ def sample_wavelengths(offset: Tensor, u_select: Tensor) -> WavelengthSamples:
     """Stratified hero-wavelength set."""
     n = NUM_SPECTRAL_SAMPLES
     i = torch.arange(n, dtype=torch.float32, device=offset.device)
-    lambdas = WL_LO + (WL_HI - WL_LO) * (i[None, :] + offset[..., None]) / n
+    # One rounding of 360 + 29.375 x (exact in float64), as the reference
+    # computes it inside its compiled renderers (a fused multiply-add).
+    x = (i[None, :] + offset[..., None]).to(torch.float64)
+    lambdas = (WL_LO + (WL_HI - WL_LO) / n * x).to(torch.float32)
     hero = torch.clamp((u_select * n).to(torch.int64), max=n - 1)
     pdf = torch.full_like(offset, n / (WL_HI - WL_LO))
     return WavelengthSamples(lambdas=lambdas, hero=hero, pdf=pdf)

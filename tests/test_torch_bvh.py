@@ -25,8 +25,17 @@ from slr_tpu_torch.native import sbvh_build
 from slr_tpu_torch.scene.api import load_scene
 from slr_tpu_torch.scene.presets import cornell_box_spheres, grass_field
 from test_torch_traverse_cull import any_hit_culled, closest_hit_culled
+from test_torch_reference_build import load_reference_sbvh
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_sbvh():
+    """Reference tables are built with the SBVH library loaded (see
+    test_torch_reference_build.py)."""
+    load_reference_sbvh()
+
 
 PARITY = os.path.join(os.path.dirname(__file__), "parity_scenes",
                       "Cornell_Box_Parity.txt")

@@ -11,8 +11,17 @@ import pytest
 import torch
 
 from slr_tpu_torch.__main__ import main
+from test_torch_reference_build import load_reference_sbvh
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_sbvh():
+    """Reference tables are built with the SBVH library loaded (see
+    test_torch_reference_build.py)."""
+    load_reference_sbvh()
+
 
 SCENE = os.path.join(os.path.dirname(__file__), "parity_scenes",
                      "Cornell_Box_Parity.txt")
@@ -117,9 +126,10 @@ def test_refuses_cpu_fallback(tmp_path):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["--renderer", "debug"], "A12"), (["--renderer", "bpt"], "A14"),
-    (["--renderer", "sppm"], "A15"), (["--renderer", "amcmcppm"], "A15"),
-    (["--scene-shard"], "A16")])
+    pytest.param(["--renderer", "bpt"], "A14", id="extra1-A14"),
+    pytest.param(["--renderer", "sppm"], "A15", id="extra2-A15"),
+    pytest.param(["--renderer", "amcmcppm"], "A15", id="extra3-A15"),
+    pytest.param(["--scene-shard"], "A16", id="extra4-A16")])
 def test_unported_renderers_raise(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         main([SCENE, "--cpu", "--out", str(tmp_path)] + extra)

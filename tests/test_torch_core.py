@@ -13,8 +13,17 @@ from slr_tpu.core import sampling as jsamp
 from slr_tpu_torch.core import math3d as tm3
 from slr_tpu_torch.core import rng as trng
 from slr_tpu_torch.core import sampling as tsamp
+from test_torch_reference_build import load_reference_sbvh
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_sbvh():
+    """Reference tables are built with the SBVH library loaded (see
+    test_torch_reference_build.py)."""
+    load_reference_sbvh()
+
 
 # Float math runs the same f32 operations in both packages; XLA and PyTorch
 # may still order a reduction or pick a transcendental differently, which

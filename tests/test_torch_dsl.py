@@ -23,8 +23,17 @@ from slr_tpu_torch.scene.bridge import from_reference
 from slr_tpu_torch.scene.dsl.lexer import tokenize
 from slr_tpu_torch.scene.dsl.parser import DSLError, TupleVal, execute
 from slr_tpu_torch.scene.graph import SceneDesc, flatten
+from test_torch_reference_build import load_reference_sbvh
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_sbvh():
+    """Reference tables are built with the SBVH library loaded (see
+    test_torch_reference_build.py)."""
+    load_reference_sbvh()
+
 
 SCENES = os.path.join(os.path.dirname(__file__), "parity_scenes")
 FILES = ["Cornell_Box_Parity.txt", "Glass_Corridor.txt"]

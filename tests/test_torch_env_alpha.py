@@ -23,8 +23,17 @@ from slr_tpu_torch.render import pt as tpt
 from slr_tpu_torch.scene import presets as tpresets
 from slr_tpu_torch.scene.bridge import from_reference
 from slr_tpu_torch.scene.build import SceneBuilder as TBuilder
+from test_torch_reference_build import load_reference_sbvh
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_sbvh():
+    """Reference tables are built with the SBVH library loaded (see
+    test_torch_reference_build.py)."""
+    load_reference_sbvh()
+
 
 RTOL, ATOL = 1e-5, 1e-6
 N = 4096

@@ -47,6 +47,9 @@ def ref():
     from slr_tpu.core import transform
     from slr_tpu.render import pt, wavefront
     from slr_tpu.scene import build, presets
+    from test_torch_reference_build import load_reference_sbvh
+
+    load_reference_sbvh()
 
     return types.SimpleNamespace(
         jnp=jnp, pi=pallas_intersect, Hit=JHit, brute=intersect_brute,

@@ -17,8 +17,17 @@ from slr_tpu_torch.scene.graph import (
     flatten,
 )
 from slr_tpu_torch.scene.presets import cornell_box_spheres
+from test_torch_reference_build import load_reference_sbvh
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_sbvh():
+    """Reference tables are built with the SBVH library loaded (see
+    test_torch_reference_build.py)."""
+    load_reference_sbvh()
+
 
 _STATIC = ("n_static", "lobe_kinds_present", "has_env", "has_alpha",
            "has_normal_map", "super_boxes_blob", "spectral", "has_checker",

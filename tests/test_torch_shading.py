@@ -26,8 +26,17 @@ from slr_tpu_torch.render import pt as tpt
 from slr_tpu_torch.render.wavefront import render_wavefront
 from slr_tpu_torch.scene.api import load_scene
 from slr_tpu_torch.scene.bridge import from_reference
+from test_torch_reference_build import load_reference_sbvh
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_sbvh():
+    """Reference tables are built with the SBVH library loaded (see
+    test_torch_reference_build.py)."""
+    load_reference_sbvh()
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -29,6 +29,9 @@ def ref():
     from slr_tpu.accel import pallas_intersect
     from slr_tpu.accel.intersect import intersect_brute as brute
     from slr_tpu.scene.presets import cornell_box_spheres as cornell
+    from test_torch_reference_build import load_reference_sbvh
+
+    load_reference_sbvh()
 
     return types.SimpleNamespace(jnp=jnp, pi=pallas_intersect, brute=brute,
                                  cornell=cornell)

@@ -4,7 +4,10 @@ the un-culled plain versions and the reference's Pallas kernels.
 
 The CUDA kernels list, per worklist entry, only the rays whose own slab test
 meets the entry's box (each face widened by MARGIN * (1 + the largest
-coordinate of the box and of the ray's origin)), test only the chunk's first
+coordinate of the box and of the ray's origin); the boxes are the casts'
+`cast_boxes`, where a moving instance's entries are widened by the most its
+triangles can stray out of the box between the shutter fractions it was
+sampled at), test only the chunk's first
 `n_valid` slots, and split a listed ray's slots over G sub-lanes whose
 results are reduced to the smallest t and, on equal t, the lowest slot. The
 emulation below (`closest_hit_culled`, `any_hit_culled`) follows that rule
@@ -61,21 +64,23 @@ def box_near(rays, box, margin=True):
     return (tn <= tf) & (tf >= rays[:, 10, :]), tn
 
 
-def _entries(pt, rays, wl2, k, trim):
+def _entries(pt, rays, wl2, k, trim, boxes):
     ch, inst, tk, line = tv._entry_tables(pt, rays, wl2, k)
     through, den, num = tv._plucker_terms(line, tk)
     slots = torch.arange(pt.chunk)
     n_slots = pt.n_valid.to(torch.int64)[ch] if trim else \
         torch.full_like(ch, pt.chunk)
     in_chunk = slots[None, None, :] < n_slots[:, None, None]
-    return ch, inst, through, den, num, in_chunk, pt.boxes[wl2[:, k]]
+    boxes = pt.cast_boxes if boxes is None else boxes
+    return ch, inst, through, den, num, in_chunk, boxes[wl2[:, k]]
 
 
 def closest_hit_culled(rays, wl, cnt, pt, sub_lanes=1, trim=True,
-                       margin=True, stats=None):
+                       margin=True, stats=None, boxes=None):
     """The closest-hit kernel's rule. `sub_lanes` = G: sub-lane g holds the
     slots g, g + G, ... and keeps its first smallest t (strict <); the G
-    results reduce to the smallest t, on equal t the lowest slot."""
+    results reduce to the smallest t, on equal t the lowest slot. `boxes`
+    replaces the cast boxes the kernels cull with."""
     nb, _, rb = rays.shape
     g = sub_lanes
     assert pt.chunk % g == 0
@@ -88,7 +93,7 @@ def closest_hit_culled(rays, wl, cnt, pt, sub_lanes=1, trim=True,
     inf = float("inf")
     for k in range(int(cnt.max()) if nb else 0):
         ch, inst, through, den, num, in_chunk, box = _entries(
-            pt, rays, wl2, k, trim)
+            pt, rays, wl2, k, trim, boxes)
         meets, tn = box_near(rays, box, margin)
         listed = live & meets & (tn <= best) & (k < cnt)[:, None]
         if stats is not None:
@@ -110,7 +115,8 @@ def closest_hit_culled(rays, wl, cnt, pt, sub_lanes=1, trim=True,
     return best, idx.to(torch.int32), best_inst.to(torch.int32)
 
 
-def any_hit_culled(rays, wl, cnt, pt, trim=True, margin=True, stats=None):
+def any_hit_culled(rays, wl, cnt, pt, trim=True, margin=True, stats=None,
+                   boxes=None):
     """The any-hit kernel's rule: a ray still open is listed for an entry
     whose (widened) box it meets within [tmin, tmax]."""
     nb, _, rb = rays.shape
@@ -120,7 +126,7 @@ def any_hit_culled(rays, wl, cnt, pt, trim=True, margin=True, stats=None):
     wl2 = wl.reshape(nb, -1).to(torch.int64)
     for k in range(int(cnt.max()) if nb else 0):
         _, _, through, den, num, in_chunk, box = _entries(pt, rays, wl2, k,
-                                                          trim)
+                                                          trim, boxes)
         meets, tn = box_near(rays, box, margin)
         listed = (live & ~occ & meets & (tn <= rays[:, 11, :])
                   & (k < cnt)[:, None])
@@ -143,6 +149,9 @@ def ref():
     import jax.numpy as jnp
     from slr_tpu.accel import pallas_intersect
     from slr_tpu.scene import build, presets
+    from test_torch_reference_build import load_reference_sbvh
+
+    load_reference_sbvh()
 
     return types.SimpleNamespace(jnp=jnp, pi=pallas_intersect, build=build,
                                  presets=presets)
@@ -270,7 +279,7 @@ def test_margin_only_adds_listed_pairs(scenes, name):
     tight = closest_hit_culled(rays, wl, cnt, pt, margin=False, stats=exact)
     wl2 = wl.reshape(rays.shape[0], -1).to(torch.int64)
     for k in range(int(cnt.max())):
-        box = pt.boxes[wl2[:, k]]
+        box = pt.cast_boxes[wl2[:, k]]
         m_wide, tn_wide = box_near(rays, box)
         m_exact, tn_exact = box_near(rays, box, margin=False)
         assert bool((m_wide | ~m_exact).all())

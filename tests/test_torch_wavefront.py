@@ -16,8 +16,17 @@ from slr_tpu_torch.render.film import develop, save_bmp, save_png, to_uint8
 from slr_tpu_torch.render.wavefront import render_wavefront
 from slr_tpu_torch.scene.bridge import from_reference
 from slr_tpu_torch.scene.presets import cornell_box_spheres
+from test_torch_reference_build import load_reference_sbvh
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_sbvh():
+    """Reference tables are built with the SBVH library loaded (see
+    test_torch_reference_build.py)."""
+    load_reference_sbvh()
+
 
 W, H, SPP, SEED = 32, 24, 4, 1
 
