@@ -42,7 +42,7 @@ caught:
    them with its Morton build.
 9. cli: `python -m slr_tpu_torch`'s `main` in-process on
    tests/parity_scenes/Cornell_Box_Parity.txt, spectral, at the file's
-   256x192 and depth 100 with 64 spp: the scene file through the DSL and
+   256x192 and depth 100 with 32 spp: the scene file through the DSL and
    the SBVH build, seven progressive passes, bmp exports and checkpoints.
    Both launch counters must equal the passes' summed iterations; the last
    export, block-averaged 4x4 to 64x48, is held against
@@ -55,7 +55,7 @@ caught:
     closest_hit_kernel to its plain version on its camera rays, its alpha
     recast set (per-ray tmin, sparse active mask) and its shadow rays (area
     light and environment); `[shading]` renders it through the CLI's main,
-    spectral, 1024x768, depth 100, 4 spp: closest-hit launches must be 2 x
+    spectral, 1024x768, depth 100, 1 spp: closest-hit launches must be 2 x
     the iterations + the alpha recasts and any-hit launches 0; then 64x48
     card against CPU.
 11. env: a diffuse sphere under a constant environment at 256x256, spp 16,
@@ -63,7 +63,7 @@ caught:
     kernels launched once per iteration), then the equirectangular camera
     at 256x128 (more than 90% of values above 0).
 12. pt: the spectral Cornell box through the fixed-depth path tracer
-    (render/pt.py `render`) at 1024x768, spp 2, depth 16, in batches of
+    (render/pt.py `render`) at 1024x768, spp 1, depth 16, in batches of
     65,536 lanes: closest-hit launches must be batches x spp x (1 + depth)
     + alpha recasts, any-hit launches batches x spp x depth; the active
     rays are counted on the device. Its profile at 256x192, then 64x48
@@ -87,8 +87,34 @@ caught:
 17. motion box (ROADMAP C1): a bar that turns 170 degrees over the
     shutter; both kernels against their plain versions on rays that graze
     its arc outside the sampled box.
-18. prints {"kernels": [...]} (launches summed over every path), then, as
-    the last line, the device line.
+18. bpt: bench.py's BPT figure on the port: the spectral parity scene at
+    256x192 through `render_bpt`, spp 8, the default adaptive caps (8 base,
+    16 deep), after a 1-spp warm-up: seconds, ksamples/s, the lanes clipped
+    at the base cap, the deep passes, the peak memory; both launch
+    counters must equal what the passes imply (per `bpt_batch` call, caps
+    - 1 closest-hit casts per subpath and one any-hit cast per eye level).
+    Then one base pass profiled (device ops, syncs, busy share).
+19. bpt check: 64x48, flat caps 4 + 4, on the card against the CPU.
+20. bpt cornell: the spectral Cornell box at 1024x768, spp 1, 12 batches
+    of 65,536 lanes, with the same figures and launch gate; `[bpt
+    kernels]`: both kernels against their plain versions on its light
+    subpath's second bounce (closest hit) and on one whole connection cast
+    (any hit: 8 x 65,536 shadow rays, each with its own tmax), captured
+    through `bpt_batch`'s `cast_fns` hook.
+21. bpt cli: the CLI's `--renderer bpt` in-process on the parity scene,
+    spectral, 256x192, 32 spp; its last export against
+    tests/goldens/ref_parity_bpt_256spp.bmp with tests/test_parity.py's BPT
+    thresholds, and the launch gate.
+22. ppm: SPPM (`render_ppm`) on the Cornell box with tests/test_ppm.py:52's
+    settings at 128x96 against the port's `render` (means within rel 0.45,
+    pixel correlation > 0.7), no any-hit launch; one wave profiled; 32x24
+    card against CPU.
+23. ppm cli: the CLI's `--renderer sppm` and `--renderer amcmcppm` on the
+    parity scene (RGB, 256x192, 8 waves of 32,768 photon paths, bounces
+    capped at 100): finite and non-negative, the mean within rel 0.45 of
+    the `[cli]` phase's image, the chains' bookkeeping within its bounds.
+24. prints {"kernels": [...]} (launches summed over every path, per path
+    in `launches_by_path`), then, as the last line, the device line.
 """
 import dataclasses
 import json
@@ -106,12 +132,15 @@ import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
 
+import slr_tpu_torch.__main__ as cli_module
 from slr_tpu_torch.__main__ import main as cli_main
 from slr_tpu_torch.accel import traverse as tv
 from slr_tpu_torch.accel.intersect import RAY_EPSILON, sample_triangle_point
 from slr_tpu_torch.camera.perspective import sample_camera_rays
 from slr_tpu_torch.core import cuda_build
 from slr_tpu_torch.core.sampling import sample_continuous_2d
+from slr_tpu_torch.render import bpt as tbpt
+from slr_tpu_torch.render import ppm as tppm
 from slr_tpu_torch.render import pt as tpt
 from slr_tpu_torch.render.film import develop
 from slr_tpu_torch.render.pt import _ray_sort_key, resolve_sp, scene_intersect
@@ -131,7 +160,10 @@ from slr_tpu_torch.scene.presets import (
 from slr_tpu_torch.spectrum.rgb import luminance
 
 WIDTH, HEIGHT, SPP, DEPTH, SEED = 1024, 768, 4, 100, 1
-CHECK_W, CHECK_H = 64, 48
+# The card-against-CPU checks at 64x48: the wavefront's at 2 spp and the
+# fixed-depth tracer's at 1 (cut for time: the CPU's plain versions took
+# ~110 s of the script at 4 and 2).
+CHECK_W, CHECK_H, CHECK_SPP, PT_CHECK_SPP = 64, 48, 2, 1
 LANES = DEFAULT_LANE_CAP
 TIMING_RUNS = 25
 PLAIN_RUNS_GRASS = 5      # the plain versions walk ~100 entries a block there
@@ -145,26 +177,44 @@ GRASS_CHECK = dict(n_side=16, blade_segments=5, animated_fraction=0.25)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PARITY = os.path.join(ROOT, "tests", "parity_scenes", "Cornell_Box_Parity.txt")
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "ref_parity_1024spp.bmp")
-CLI_SPP = 64
+CLI_SPP = 32    # cut for time
 # The shading scene (every lobe, texture and image kind, the environment,
 # alpha cutouts, a normal map, an .assbin model) through the CLI, spectral,
-# at 1024x768 and depth 100; spp cut to 4 for time.
-SHADE_W, SHADE_H, SHADE_SPP = 1024, 768, 4
+# at 1024x768 and depth 100; spp cut to 1 for time.
+SHADE_W, SHADE_H, SHADE_SPP = 1024, 768, 1
 # The environment light alone: a diffuse sphere under a constant sky.
 ENV_SIZE, ENV_SPP, ENV_DEPTH, ENV_RHO = 256, 16, 16, 0.6
 EQUI_W, EQUI_H = 256, 128
 
 # The fixed-depth path tracer (render/pt.py `render`): the spectral Cornell
-# box at its full 1024x768, spp 2, depth 16 (the fixed-depth default), in
-# batches of 65,536 lanes; the grass golden at tests/test_instancing.py's
-# settings; gradients at 256x192 through `render_fused`.
-PT_SPP, PT_DEPTH, PT_BATCH = 2, 16, 65536
+# box at its full 1024x768, spp 1 (cut for time), depth 16 (the fixed-depth
+# default), in batches of 65,536 lanes; the grass golden at
+# tests/test_instancing.py's settings; gradients at 256x192 through
+# `render_fused`.
+PT_SPP, PT_DEPTH, PT_BATCH = 1, 16, 65536
 GRASS_GOLDEN = os.path.join(ROOT, "tests", "goldens", "grass_field_n8.npz")
 GRAD_W, GRAD_H, GRAD_DEPTH = 256, 192, 3
 AOV_GOLDENS = {"gnormal": "gnormal", "snormal": "snormal",
                "stangent": "tangent"}
 # The C1 check: a bar that turns 170 degrees about +y over the shutter.
 BAR_L, BAR_W, BAR_TURN, BAR_RAYS = 1.0, 0.02, 170.0, 64
+
+# The bidirectional path tracer: bench.py's BPT figure (the parity scene at
+# 256x192, spp 8, the default adaptive caps 8 -> 16), the spectral Cornell
+# box at its full 1024x768 (spp 1, 12 batches of 65,536 lanes), the card
+# against the CPU at 64x48 with flat caps 4 + 4, and the CLI at 32 spp
+# against the reference renderer's 256-spp BPT golden.
+BPT_W, BPT_H, BPT_SPP, BPT_CORNELL_SPP, BPT_CLI_SPP = 256, 192, 8, 1, 32
+BPT_BASE, BPT_DEEP, BPT_LANES = 8, 16, 65536
+BPT_GOLDEN = os.path.join(ROOT, "tests", "goldens",
+                          "ref_parity_bpt_256spp.bmp")
+# Photon mapping: tests/test_ppm.py:52's settings at 128x96 against the
+# port's `render`, the card against the CPU at 32x24, and the CLI's sppm and
+# amcmcppm on the parity scene (RGB, its defaults, 8 waves).
+PPM_W, PPM_H = 128, 96
+PPM_KW = dict(n_iterations=8, n_photon_paths=8192, max_bounces=5, seed=3,
+              k_per_cell=32, r0=0.08)
+PPM_CLI_WAVES = 8
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
 PEAK_FP32 = 67e12
@@ -606,7 +656,7 @@ def check_closest(label, pt, o, d, tmax, active, f=None, tmin=RAY_EPSILON):
                 max_abs_err=err)
 
 
-def check_any(label, pt, o, d, tmax, active, f=None):
+def check_any(label, pt, o, d, tmax, active, f=None, plain_runs=None):
     rays, wl, cnt, wtn, _ = tv.prepare_cast(pt, o, d, RAY_EPSILON, tmax,
                                             active, f=f)
     tests = torch.zeros(rays.shape[0], dtype=torch.int32, device=DEV)
@@ -620,7 +670,8 @@ def check_any(label, pt, o, d, tmax, active, f=None):
     n_diff = int((occ_k != occ_p).sum())
     ms = median_ms(lambda: tv.any_hit(rays, wl, wtn, cnt, pt))
     plain = median_ms(lambda: tv.any_hit_plain(rays, wl, cnt, pt),
-                      TIMING_RUNS if f is None else PLAIN_RUNS_GRASS)
+                      plain_runs or (TIMING_RUNS if f is None
+                                     else PLAIN_RUNS_GRASS))
     bms, by = bound_ms("any_hit", (rays, wl, wtn, cnt), pt, (occ_k,), tests,
                        xforms)
     e_st, e_in = entries_per_block(pt, wl, cnt)
@@ -927,6 +978,51 @@ def phase_main_path(scene) -> dict:
                 iterations=iters, lanes=lanes, mean=mean, launches=launches)
 
 
+def profile_run(fn, tag, what, steps_label, steps) -> dict:
+    """`fn()` once unprofiled (its wall time), once under torch.profiler:
+    device ops and host syncs per step, the device's busy share of the
+    unprofiled wall time, the two kernels' share of device time and the
+    largest device items. `steps` is a count, or a function of what `fn`
+    returns (a render's iterations)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if callable(steps):
+        steps = steps(out)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    if not dev or busy <= 0.0:
+        raise AssertionError("the profiler recorded no device time")
+    syncs = sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+                for e in prof.events())
+    by_name = {}
+    for e in dev:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.self_device_time_total)
+    log(f"[{tag}] {what}: {wall:.3f} s unprofiled, {steps} {steps_label} "
+        f"({wall / steps * 1e3:.2f} ms each); {len(dev) / steps:.0f} device "
+        f"ops and {syncs / steps:.1f} host syncs per step; device busy "
+        f"{busy:.3f} s = {busy / wall:.3f} of the unprofiled wall time")
+    shares = {}
+    for kname in ("closest_hit_kernel", "any_hit_kernel"):
+        n, us = next((v for k, v in by_name.items() if kname in k), (0, 0.0))
+        shares[kname] = us / 1e6 / busy
+        log(f"[{tag}] {kname}: {n} launches, {us / max(n, 1) / 1e3:.4f} ms "
+            f"each, {us / 1e6 / busy:.3f} of device time")
+    for name, (n, us) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][1])[:6]:
+        log(f"[{tag}]   {us / 1e3:9.3f} ms in {n:6d} launches: {name[:90]}")
+    return dict(wall=wall, busy_share=busy / wall, ops_per_step=len(dev)
+                / steps, syncs_per_step=syncs / steps, kernel_share=shares)
+
+
 def phase_profile(scene, tag="profile", depth=DEPTH) -> None:
     """Where the main path's time goes: one 256x192 (= 49,152 lanes) spp 1
     render under torch.profiler. Reports launches per iteration, the
@@ -934,46 +1030,14 @@ def phase_profile(scene, tag="profile", depth=DEPTH) -> None:
     The profiler's events take ~65 us each to read back on the host, so a
     scene of many launches per iteration is profiled at a smaller depth
     (fewer iterations, each with every lane busy)."""
-    kw = dict(spp=1, seed=SEED, max_depth=depth, return_iters=True)
-    t0 = time.perf_counter()
-    _, iters = render_wavefront(scene, 256, 192, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        render_wavefront(scene, 256, 192, **kw)
-        torch.cuda.synchronize()
-        pwall = time.perf_counter() - t0
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in dev) / 1e6
-    if not dev or busy <= 0.0:
-        raise AssertionError("the profiler recorded no device time")
-    by_name = {}
-    for e in dev:
-        n, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, us + e.self_device_time_total)
-    syncs = sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize")
-                for e in prof.events())
-    log(f"[{tag}] 256x192 spp 1 depth {depth}: {iters} iterations, "
-        f"{wall:.3f} s "
-        f"({wall / iters * 1e3:.2f} ms per iteration) unprofiled, "
-        f"{pwall:.3f} s profiled; {len(dev) / iters:.0f} device ops and "
-        f"{syncs / iters:.1f} host syncs per iteration; device busy "
-        f"{busy:.3f} s = {busy / wall:.3f} of the unprofiled wall time")
-    for kname in ("closest_hit_kernel", "any_hit_kernel"):
-        n, us = next((v for k, v in by_name.items() if kname in k), (0, 0.0))
-        log(f"[{tag}] {kname}: {n} launches, {us / max(n, 1) / 1e3:.4f} ms "
-            f"each, {us / 1e6 / busy:.3f} of device time")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-    for name, (n, us) in top:
-        log(f"[{tag}]   {us / 1e3:9.3f} ms in {n:6d} launches: {name[:90]}")
+    profile_run(lambda: render_wavefront(
+        scene, 256, 192, spp=1, seed=SEED, max_depth=depth,
+        return_iters=True), tag, f"256x192 spp 1 depth {depth}",
+        "iterations", lambda out: out[1])
 
 
 def phase_cross_check(scene, main_mean: float | None, tag="check") -> None:
-    kw = dict(spp=SPP, seed=SEED, max_depth=DEPTH, return_iters=True)
+    kw = dict(spp=CHECK_SPP, seed=SEED, max_depth=DEPTH, return_iters=True)
     t0 = time.perf_counter()
     gpu, it_gpu = render_wavefront(scene, CHECK_W, CHECK_H, **kw)
     gpu = gpu.cpu().numpy()
@@ -991,7 +1055,7 @@ def phase_cross_check(scene, main_mean: float | None, tag="check") -> None:
     rel = abs(gpu.mean() / cpu.mean() - 1.0)
     n_far = int((~(np.abs(gpu - cpu) <= 1e-3 * np.abs(cpu) + 1e-6)
                    .all(-1)).sum())
-    log(f"[{tag}] {CHECK_W}x{CHECK_H} spp {SPP} depth {DEPTH}: card "
+    log(f"[{tag}] {CHECK_W}x{CHECK_H} spp {CHECK_SPP} depth {DEPTH}: card "
         f"{t1 - t0:.2f} s ({it_gpu} iterations), CPU {t2 - t1:.2f} s "
         f"({it_cpu} iterations); pixels within rtol 1e-3 {close:.6f} "
         f"({n_far} beyond), means {gpu.mean():.6f} / {cpu.mean():.6f} (rel "
@@ -1102,9 +1166,10 @@ def block_mean(img, f=4) -> np.ndarray:
     return img.reshape(h // f, f, w // f, f, c).mean(axis=(1, 3))
 
 
-def parity_gates(ours, gold) -> None:
+def parity_gates(ours, gold, tag="cli", quadrant_limit=9.0) -> None:
     """tests/test_parity.py's four thresholds on 64x48 block means (0-255
-    scale), each measured value printed beside its limit."""
+    scale), each measured value printed beside its limit (the quadrants'
+    limit is 9 for the path tracer, 10 for BPT)."""
     d = np.abs(ours - gold)
     gates = [("channel means, largest difference",
               float(np.abs(ours.mean((0, 1)) - gold.mean((0, 1))).max()),
@@ -1117,13 +1182,13 @@ def parity_gates(ours, gold) -> None:
                           f"{xs.start}-{xs.stop} means, largest difference",
                           float(np.abs(ours[ys, xs].mean((0, 1))
                                        - gold[ys, xs].mean((0, 1))).max()),
-                          9.0))
+                          quadrant_limit))
     for name, value, limit in gates:
-        log(f"[cli] golden gate: {name} {value:.4f} < {limit}: "
+        log(f"[{tag}] golden gate: {name} {value:.4f} < {limit}: "
             f"{'pass' if value < limit else 'FAIL'}")
     failed = [g for g in gates if not g[1] < g[2]]
     if failed:
-        raise AssertionError(f"the parity render fails the golden gates: "
+        raise AssertionError(f"the {tag} render fails the golden gates: "
                              f"{failed}")
 
 
@@ -1174,9 +1239,11 @@ def phase_cli(tmp) -> dict:
         raise AssertionError(f"export of shape {ours.shape}")
     log(ascii_view(torch.as_tensor(ours / 255.0, device=DEV)))
     parity_gates(block_mean(ours), block_mean(read_bmp(GOLDEN)))
+    with np.load(os.path.join(out, "checkpoint.npz")) as z:
+        film_mean = float((z["accum"] + z["comp"]).mean() / int(z["done"]))
     return dict(seconds=secs, iterations=iters, launches=launches,
                 work=work, ksamples_per_s=ksps, mrays_per_s=mrays,
-                load_seconds=res["load_seconds"])
+                load_seconds=res["load_seconds"], film_mean=film_mean)
 
 
 def phase_cli_module(tmp) -> None:
@@ -1431,7 +1498,7 @@ def _agreement(a, b, rtol=1e-3, atol=1e-6) -> tuple[float, float, int]:
 
 
 def phase_pt(scene) -> dict:
-    """The spectral Cornell box through `render` at 1024x768, spp 2, depth
+    """The spectral Cornell box through `render` at 1024x768, spp 1, depth
     16: every lane runs all 16 bounces (one closest-hit and one shadow cast
     each) after its camera cast, in batches of 65,536 lanes."""
     tpt.render(scene, 128, 96, spp=1, seed=SEED, max_depth=PT_DEPTH)
@@ -1488,49 +1555,17 @@ def phase_pt_profile(scene) -> None:
     """Where `render`'s time goes: one 256x192 (49,152 lanes, one batch)
     spp 1 depth 16 render under torch.profiler: device ops and host syncs
     per bounce, the device's busy share, the kernels' share of it."""
-    kw = dict(spp=1, seed=SEED, max_depth=PT_DEPTH)
-    steps = 1 + PT_DEPTH
-    t0 = time.perf_counter()
-    tpt.render(scene, 256, 192, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        tpt.render(scene, 256, 192, **kw)
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in dev) / 1e6
-    if not dev or busy <= 0.0:
-        raise AssertionError("the profiler recorded no device time")
-    syncs = sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize")
-                for e in prof.events())
-    log(f"[pt profile] 256x192 spp 1 depth {PT_DEPTH}: {wall:.3f} s "
-        f"unprofiled ({wall / steps * 1e3:.2f} ms per cast step, {steps} "
-        f"steps); {len(dev) / steps:.0f} device ops and "
-        f"{syncs / steps:.1f} host syncs per step; device busy {busy:.3f} s "
-        f"= {busy / wall:.3f} of the unprofiled wall time")
-    by_name = {}
-    for e in dev:
-        n, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, us + e.self_device_time_total)
-    for kname in ("closest_hit_kernel", "any_hit_kernel"):
-        n, us = next((v for k, v in by_name.items() if kname in k), (0, 0.0))
-        log(f"[pt profile] {kname}: {n} launches, "
-            f"{us / max(n, 1) / 1e3:.4f} ms each, {us / 1e6 / busy:.3f} of "
-            f"device time")
-    for name, (n, us) in sorted(by_name.items(),
-                                key=lambda kv: -kv[1][1])[:6]:
-        log(f"[pt profile]   {us / 1e3:9.3f} ms in {n:6d} launches: "
-            f"{name[:90]}")
+    profile_run(lambda: tpt.render(scene, 256, 192, spp=1, seed=SEED,
+                                   max_depth=PT_DEPTH),
+                "pt profile", f"256x192 spp 1 depth {PT_DEPTH}",
+                "cast steps", 1 + PT_DEPTH)
 
 
 def phase_pt_check(scene) -> None:
     """`render` at 64x48 on the card against the CPU (plain versions), with
     phase_cross_check's statistic; then the coherence sort on the card: one
     batch of camera rays traced with and without it."""
-    kw = dict(spp=PT_SPP, seed=SEED, max_depth=PT_DEPTH)
+    kw = dict(spp=PT_CHECK_SPP, seed=SEED, max_depth=PT_DEPTH)
     t0 = time.perf_counter()
     gpu = tpt.render(scene, CHECK_W, CHECK_H, **kw).cpu().numpy()
     t1 = time.perf_counter()
@@ -1539,8 +1574,8 @@ def phase_pt_check(scene) -> None:
                      **kw).numpy()
     t2 = time.perf_counter()
     close, rel, n_far = _agreement(gpu, cpu)
-    log(f"[pt check] {CHECK_W}x{CHECK_H} spp {PT_SPP} depth {PT_DEPTH}: card "
-        f"{t1 - t0:.2f} s, CPU {t2 - t1:.2f} s; pixels within rtol 1e-3 "
+    log(f"[pt check] {CHECK_W}x{CHECK_H} spp {PT_CHECK_SPP} depth {PT_DEPTH}: "
+        f"card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s; pixels within rtol 1e-3 "
         f"{close:.6f} ({n_far} beyond), means {gpu.mean():.6f} / "
         f"{cpu.mean():.6f} (rel {rel:.2e})")
     if close < 0.98 or rel >= 0.01:
@@ -1869,6 +1904,327 @@ def phase_motion_box() -> dict:
     return dict(closest_hit=closest, any_hit=anyhit)
 
 
+# ---------------------------------------------------------------------------
+# Phases 18-24: the bidirectional path tracer and photon mapping
+# ---------------------------------------------------------------------------
+
+def bpt_launches_wanted(base_calls, deep_calls, recasts=0) -> dict:
+    """What the BPT passes launch: per `bpt_batch` call, one closest-hit
+    cast per subpath bounce (caps - 1 on each side) and one any-hit cast
+    per eye level (the cap), plus the alpha recasts."""
+    return {"closest_hit": base_calls * 2 * (BPT_BASE - 1)
+            + deep_calls * 2 * (BPT_DEEP - 1) + recasts,
+            "any_hit": base_calls * BPT_BASE + deep_calls * BPT_DEEP,
+            "xform_rays": 0}
+
+
+def run_bpt(tag, scene, width, height, spp, ray_batch=None) -> dict:
+    """`render_bpt` at the default adaptive caps after a warm-up (128x96,
+    1 spp):
+    seconds, ksamples/s, the clipped lanes, the deep passes and the launch
+    gate."""
+    tbpt.render_bpt(scene, 128, 96, spp=1, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tv.reset_launches()
+    tpt.reset_alpha_recasts()
+    tbpt.reset_tiers()
+    t0 = time.perf_counter()
+    img = tbpt.render_bpt(scene, width, height, spp=spp, seed=SEED,
+                          ray_batch=ray_batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(tv.LAUNCHES)
+    tiers = dict(tbpt.TIERS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    batch = ray_batch or min(width * height, 65536)
+    base_calls = spp * -(-width * height // batch)
+    want = bpt_launches_wanted(base_calls, tiers["deep_passes"],
+                               tpt.ALPHA_RECASTS["casts"])
+    ksps = width * height * spp / secs / 1e3
+    clipped = tiers["clipped"] / max(tiers["base_lanes"], 1)
+    mean = float(img.mean())
+    log(f"[{tag}] {width}x{height} spp {spp}, caps {BPT_BASE} -> "
+        f"{BPT_DEEP}: {secs:.3f} s, {ksps:.2f} ksamples/s; lanes clipped at "
+        f"the base cap {tiers['clipped']} of {tiers['base_lanes']} "
+        f"({clipped:.5f}), deep passes {tiers['deep_passes']} over "
+        f"{tiers['deep_lanes']} lanes; launches {launches} (wanted {want}), "
+        f"image mean {mean:.5f}, peak memory {peak:.2f} GiB")
+    log(ascii_view(img))
+    if tuple(img.shape) != (height, width, 3) or not bool(
+            torch.isfinite(img).all()) or not mean > 0.0:
+        raise AssertionError(f"{tag} image is not finite, black or of the "
+                             f"wrong shape")
+    if launches != want:
+        raise AssertionError(f"{tag} launch counts {launches} != {want}")
+    return dict(seconds=secs, ksamples_per_s=ksps, clipped_share=clipped,
+                tiers=tiers, launches=launches, peak_gib=peak, mean=mean)
+
+
+def phase_bpt(parity) -> dict:
+    """bench.py's BPT configuration on the port: the spectral parity scene
+    at 256x192, spp 8, the default adaptive caps; then one base pass of it
+    profiled (flat caps 8 + 8, one sample)."""
+    res = run_bpt("bpt", parity, BPT_W, BPT_H, BPT_SPP)
+    prof = profile_run(
+        lambda: tbpt.render_bpt(parity, BPT_W, BPT_H, spp=1, seed=SEED,
+                                max_light_verts=BPT_BASE,
+                                max_eye_verts=BPT_BASE),
+        "bpt profile", f"{BPT_W}x{BPT_H} spp 1, flat caps {BPT_BASE}",
+        f"cast steps ({BPT_BASE - 1} + {BPT_BASE - 1} bounces, {BPT_BASE} "
+        f"connection levels)", 2 * (BPT_BASE - 1) + BPT_BASE)
+    # One deep pass alone: the smallest batch of the ladder at full caps.
+    n = 1024
+    pix = torch.arange(n, device=DEV)
+    film = torch.zeros((BPT_W * BPT_H, 16), device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tbpt.bpt_batch(parity, pix, torch.zeros_like(pix), SEED, BPT_W, BPT_H,
+                   film, BPT_DEEP, BPT_DEEP,
+                   lane_mask=torch.ones(n, dtype=torch.bool, device=DEV))
+    torch.cuda.synchronize()
+    deep_s = time.perf_counter() - t0
+    steps = 2 * (BPT_DEEP - 1) + BPT_DEEP
+    base_s = prof["wall"]
+    log(f"[bpt profile] one deep pass of {n} lanes at caps {BPT_DEEP}: "
+        f"{deep_s:.3f} s ({deep_s / steps * 1e3:.2f} ms per cast step); "
+        f"the {res['tiers']['deep_passes']} deep passes of the render are "
+        f"~{res['tiers']['deep_passes'] * deep_s / res['seconds']:.3f} of "
+        f"its wall time, its {BPT_SPP} base passes "
+        f"~{BPT_SPP * base_s / res['seconds']:.3f}")
+    res["profile"] = dict(prof, deep_pass_s=deep_s)
+    return res
+
+
+def phase_bpt_cornell() -> tuple:
+    """The spectral Cornell box at the reference's 1024x768, spp 1, in 12
+    batches of 65,536 lanes."""
+    scene = cornell_box_spheres(spectral=True)
+    return scene, run_bpt("bpt cornell", scene, WIDTH, HEIGHT,
+                          BPT_CORNELL_SPP, ray_batch=BPT_LANES)
+
+
+def phase_bpt_kernels(scene) -> dict:
+    """Both kernels against their plain versions on the BPT's own ray
+    sets, captured through `bpt_batch`'s `cast_fns` hook on the first
+    65,536-lane batch of the Cornell box at base caps: the light subpath's
+    second bounce (closest hit), and the whole connection cast of eye level
+    t = 2 (any hit: n_l x 65,536 shadow rays, each with its own tmax)."""
+    seen = {"closest": [], "shadow": []}
+
+    def isect(*args, **kw):
+        seen["closest"].append((args, kw))
+        return tpt.scene_intersect_alpha(*args, **kw)
+
+    def occl(*args, **kw):
+        seen["shadow"].append((args, kw))
+        return tpt.scene_occluded(*args, **kw)
+
+    n = BPT_LANES
+    film = torch.zeros((WIDTH * HEIGHT, 16), device=DEV)
+    tbpt.bpt_batch(scene, torch.arange(n, device=DEV),
+                   torch.zeros(n, dtype=torch.int64, device=DEV), SEED,
+                   WIDTH, HEIGHT, film, BPT_BASE, BPT_BASE,
+                   pid_contiguous=True, cast_fns=(isect, occl))
+    (_, o, d), kw = seen["closest"][1]
+    (_, o_s, d_s, _, tmax_s), kw_s = seen["shadow"][1]
+    pt = scene.pallas_tris
+    act, act_s = kw["active"], kw_s["active"]
+    log(f"[bpt kernels] light bounce 2 of {n} lanes: {int(act.sum())} "
+        f"closest-hit rays active; connection cast t = 2: "
+        f"{o_s.shape[0]} shadow rays ({o_s.shape[0] // n} light vertices x "
+        f"{n}), {int(act_s.sum())} active")
+    if o_s.shape[0] != BPT_BASE * n:
+        raise AssertionError("the connection cast is not n_l x lanes")
+    return {"closest_hit": check_closest("bpt light bounce 2", pt, o, d,
+                                         float("inf"), act),
+            "any_hit": check_any("bpt connection t=2", pt, o_s, d_s, tmax_s,
+                                 act_s, plain_runs=PLAIN_RUNS_GRASS)}
+
+
+def phase_bpt_check(parity) -> None:
+    """`render_bpt` at 64x48, flat caps 4 + 4, on the card and on the CPU
+    (plain versions): >= 98% of pixels within rtol 1e-3, means within 1%.
+    The film's index_add_ adds atomically on the card, so its last bits
+    may differ from the CPU's sequential sums."""
+    kw = dict(spp=1, seed=SEED, max_light_verts=4, max_eye_verts=4)
+    t0 = time.perf_counter()
+    gpu = tbpt.render_bpt(parity, CHECK_W, CHECK_H, **kw).cpu().numpy()
+    t1 = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu = tbpt.render_bpt(parity.to("cpu"), CHECK_W, CHECK_H, device="cpu",
+                          **kw).numpy()
+    t2 = time.perf_counter()
+    close, rel, n_far = _agreement(gpu, cpu)
+    log(f"[bpt check] {CHECK_W}x{CHECK_H} spp 1 caps 4 + 4: card "
+        f"{t1 - t0:.2f} s, CPU {t2 - t1:.2f} s; pixels within rtol 1e-3 "
+        f"{close:.6f} ({n_far} beyond), means {gpu.mean():.6f} / "
+        f"{cpu.mean():.6f} (rel {rel:.2e})")
+    if close < 0.98 or rel >= 0.01:
+        raise AssertionError("the card's BPT render disagrees with the CPU's")
+
+
+def phase_bpt_cli(tmp) -> dict:
+    """The CLI's `--renderer bpt` in-process on the parity scene, spectral,
+    at its 256x192 and 32 spp; the last export, block-averaged to 64x48,
+    against the reference renderer's 256-spp BPT golden with
+    tests/test_parity.py's BPT thresholds."""
+    out = os.path.join(tmp, "bpt_cli")
+    torch.cuda.synchronize()
+    tv.reset_launches()
+    tpt.reset_alpha_recasts()
+    res = cli_main([PARITY, "--spectral", "--renderer", "bpt", "--spp",
+                    str(BPT_CLI_SPP), "--format", "bmp", "--out", out])
+    torch.cuda.synchronize()
+    launches = dict(tv.LAUNCHES)
+    w, h = res["width"], res["height"]
+    secs = sum(p[1] for p in res["passes"])
+    calls = sum(p[2] for p in res["passes"])
+    deep = res["deep_passes"]
+    want = bpt_launches_wanted(calls - deep, deep, tpt.ALPHA_RECASTS["casts"])
+    ksps = w * h * res["spp"] / secs / 1e3
+    for spp, sec, c in res["passes"]:
+        log(f"[bpt cli]   pass of {spp} spp: {sec:.3f} s, {c} bpt_batch "
+            f"calls")
+    log(f"[bpt cli] {w}x{h} spp {res['spp']} spectral: {secs:.3f} s in "
+        f"{len(res['passes'])} passes, {ksps:.2f} ksamples/s, tiers "
+        f"{res['tiers']}, launches {launches} (wanted {want})")
+    names = sorted(os.listdir(out))
+    want_files = sorted([f"{k:03d}.bmp" for k in range(len(res["passes"]))]
+                        + ["checkpoint.npz"])
+    if names != want_files or res["spp"] != BPT_CLI_SPP:
+        raise AssertionError(f"BPT CLI exports {names}")
+    if launches != want:
+        raise AssertionError(f"BPT CLI launch counts {launches} != {want}")
+    ours = read_bmp(os.path.join(out, want_files[-2]))
+    log(ascii_view(torch.as_tensor(ours / 255.0, device=DEV)))
+    parity_gates(block_mean(ours), block_mean(read_bmp(BPT_GOLDEN)),
+                 "bpt cli", quadrant_limit=10.0)
+    return dict(seconds=secs, ksamples_per_s=ksps, launches=launches,
+                tiers=res["tiers"])
+
+
+def phase_ppm() -> dict:
+    """SPPM on the Cornell box (tests/test_ppm.py:52's settings) at
+    128x96 against the port's fixed-depth `render` at the test's gates
+    (means within rel 0.45, pixel correlation > 0.7); one wave profiled;
+    then 32x24 on the card against the CPU."""
+    scene = cornell_box_spheres(sphere_res=6)
+    tppm.render_ppm(scene, 32, 24, n_iterations=1, n_photon_paths=1024,
+                    max_bounces=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tv.reset_launches()
+    t0 = time.perf_counter()
+    img = tppm.render_ppm(scene, PPM_W, PPM_H, **PPM_KW)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(tv.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pt_img = tpt.render(scene, PPM_W, PPM_H, spp=32, max_depth=5,
+                        seed=3).cpu().numpy()
+    ppm_img = img.cpu().numpy()
+    rel = abs(ppm_img.mean() / pt_img.mean() - 1.0)
+    corr = float(np.corrcoef(pt_img.mean(-1).ravel(),
+                             ppm_img.mean(-1).ravel())[0, 1])
+    waves = PPM_KW["n_iterations"]
+    paths = waves * PPM_KW["n_photon_paths"]
+    log(f"[ppm] {PPM_W}x{PPM_H}, {waves} waves x "
+        f"{PPM_KW['n_photon_paths']} photon paths, {PPM_KW['max_bounces']} "
+        f"bounces, K {PPM_KW['k_per_cell']}: {secs:.3f} s, "
+        f"{paths / secs:.0f} photon paths/s, launches {launches}, peak "
+        f"memory {peak:.3f} GiB; mean {ppm_img.mean():.5f} against PT "
+        f"{pt_img.mean():.5f} (rel {rel:.4f} < 0.45), pixel correlation "
+        f"{corr:.4f} > 0.7")
+    log(ascii_view(img))
+    # Per wave: the hitpoint cast and its 4 specular bounces, then up to
+    # max_bounces photon casts (a wave stops once no path is alive).
+    lo = waves * (5 + 1)
+    hi = waves * (5 + PPM_KW["max_bounces"])
+    if not np.isfinite(ppm_img).all() or not (ppm_img >= 0).all():
+        raise AssertionError("the PPM image is not finite and non-negative")
+    if rel >= 0.45 or corr <= 0.7:
+        raise AssertionError("SPPM disagrees with PT")
+    if not (lo <= launches["closest_hit"] <= hi and launches["any_hit"] == 0
+            and launches["xform_rays"] == 0):
+        raise AssertionError(f"PPM launch counts {launches}")
+    prof = profile_run(
+        lambda: tppm.render_ppm(scene, PPM_W, PPM_H, **dict(
+            PPM_KW, n_iterations=1)),
+        "ppm profile", f"{PPM_W}x{PPM_H}, one wave",
+        "casts (5 hitpoint, <= 5 photon)", 10)
+
+    kw = dict(PPM_KW, n_photon_paths=2048)
+    t0 = time.perf_counter()
+    gpu = tppm.render_ppm(scene, 32, 24, **kw).cpu().numpy()
+    t1 = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu = tppm.render_ppm(scene.to("cpu"), 32, 24, device="cpu",
+                          **kw).numpy()
+    t2 = time.perf_counter()
+    close, crel, n_far = _agreement(gpu, cpu)
+    log(f"[ppm check] 32x24, {kw['n_iterations']} waves x 2048 photon "
+        f"paths: card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s; pixels within "
+        f"rtol 1e-3 {close:.6f} ({n_far} beyond), means {gpu.mean():.6f} / "
+        f"{cpu.mean():.6f} (rel {crel:.2e})")
+    if close < 0.98:
+        raise AssertionError("the card's PPM render disagrees with the CPU's")
+    return dict(seconds=secs, photon_paths_per_s=paths / secs,
+                launches=launches, peak_gib=peak, rel_to_pt=rel, corr=corr,
+                profile=prof)
+
+
+def phase_ppm_cli(tmp, pt_mean) -> dict:
+    """The CLI's `--renderer sppm` and `--renderer amcmcppm` in-process on
+    the parity scene at its 256x192, RGB, with the CLI's defaults (32,768
+    photon paths a wave, bounces capped at --max-depth 100) and 8 waves:
+    finite, non-negative, the mean within rel 0.45 of the [cli] phase's
+    path-traced image, and the chains' bookkeeping within its bounds."""
+    launches = {"closest_hit": 0, "any_hit": 0, "xform_rays": 0}
+    out = {}
+    for method in ("sppm", "amcmcppm"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tv.reset_launches()
+        res = cli_main([PARITY, "--renderer", method, "--spp",
+                        str(PPM_CLI_WAVES), "--format", "bmp", "--out",
+                        os.path.join(tmp, method)])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = dict(tv.LAUNCHES)
+        for k in launches:
+            launches[k] += got[k]
+        img = res["image"]
+        rel = abs(float(img.mean()) / pt_mean - 1.0)
+        pps = res["photon_paths"] / res["seconds"]
+        log(f"[ppm cli] {method}: {res['width']}x{res['height']}, "
+            f"{res['waves']} waves, {res['photon_paths']} photon paths in "
+            f"{res['seconds']:.3f} s ({pps:.0f} photon paths/s), launches "
+            f"{got}, peak memory {peak:.3f} GiB; mean {img.mean():.5f} "
+            f"against the PT CLI's {pt_mean:.5f} (rel {rel:.4f} < 0.45); "
+            f"n_uniform {res['n_uniform']:.0f}, n_visible "
+            f"{res['n_visible']:.0f}, mutation size "
+            f"{res['mutation_size']:.5f}")
+        if not np.isfinite(img).all() or not (img >= 0).all():
+            raise AssertionError(f"{method} image is not finite and "
+                                 f"non-negative")
+        if rel >= 0.45:
+            raise AssertionError(f"{method} mean disagrees with PT")
+        if got["any_hit"] != 0 or got["closest_hit"] <= 0:
+            raise AssertionError(f"{method} launch counts {got}")
+        # The mutation size is float32, clipped to [1e-4, 1]: at its floor
+        # it is float32(1e-4) = 9.99999975e-05.
+        if method == "amcmcppm" and not (
+                res["n_uniform"]
+                == PPM_CLI_WAVES * cli_module.PPM_PHOTON_PATHS
+                and 0 <= res["n_visible"] <= res["n_uniform"]
+                and np.float32(1e-4) <= res["mutation_size"] <= 1.0):
+            raise AssertionError("amcmcppm chain bookkeeping out of bounds")
+        out[method] = dict(seconds=res["seconds"], photon_paths_per_s=pps,
+                           peak_gib=peak, launches=got)
+    return dict(launches=launches, **out)
+
+
 _LAP = [time.perf_counter()]
 
 
@@ -1951,9 +2307,28 @@ def main() -> None:
     motion = phase_motion_box()
     lap("debug and motion box")
 
+    parity, _, _ = load_scene(PARITY, spectral=True)
+    bpt = phase_bpt(parity)
+    phase_bpt_check(parity)
+    del parity
+    lap("bpt and its check")
+    bpt_scene, bpt_cornell = phase_bpt_cornell()
+    bpt_kernels = phase_bpt_kernels(bpt_scene)
+    del bpt_scene
+    lap("bpt cornell and kernels")
+    with tempfile.TemporaryDirectory() as tmp:
+        bpt_cli = phase_bpt_cli(tmp)
+        lap("bpt cli")
+        ppm = phase_ppm()
+        lap("ppm")
+        ppm_cli = phase_ppm_cli(tmp, cli["film_mean"])
+        lap("ppm cli")
+
     paths = {"cornell": main_path, "grass": g_main, "cli": cli,
              "shading": shading, "env": env, "pt": pt_path,
-             "pt_golden": pt_golden, "grad": grad, "debug": debug}
+             "pt_golden": pt_golden, "grad": grad, "debug": debug,
+             "bpt": bpt, "bpt_cornell": bpt_cornell, "bpt_cli": bpt_cli,
+             "ppm": ppm, "ppm_cli": ppm_cli}
     kernels = []
     for name in ("closest_hit", "any_hit"):
         kernels.append(dict(
@@ -1980,6 +2355,8 @@ def main() -> None:
         k["pt"] = dict(launches=pt_path["launches"][k["name"]],
                        **pt_kernels[k["name"]])
         k["motion_box"] = motion[k["name"]]
+        k["bpt"] = dict(launches=bpt["launches"][k["name"]],
+                        **bpt_kernels[k["name"]])
     # The instance transform: on the main paths it runs as a device function
     # of the two kernels above, whose counted transforms show it; launched
     # on its own (never by a cast) it is held against its plain version.
@@ -1995,8 +2372,11 @@ def main() -> None:
     if not all(k["launches_by_path"][p] > 0 for k in kernels[:2]
                for p in ("cornell", "grass", "cli", "env", "pt", "pt_golden",
                          "grad")) \
-            or not kernels[0]["launches_by_path"]["shading"] > 0 \
-            or not kernels[0]["launches_by_path"]["debug"] > 0:
+            or not all(kernels[0]["launches_by_path"][p] > 0
+                       for p in ("shading", "debug", "bpt", "bpt_cornell",
+                                 "bpt_cli", "ppm", "ppm_cli")) \
+            or not all(kernels[1]["launches_by_path"][p] > 0
+                       for p in ("bpt", "bpt_cornell", "bpt_cli")):
         raise AssertionError("a kernel of the main paths was never launched")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

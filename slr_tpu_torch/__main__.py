@@ -2,19 +2,23 @@
 
     python -m slr_tpu_torch <scene.txt> [--spp N] [--out DIR] [--spectral]
                             [--width W] [--height H] [--max-depth D]
-                            [--renderer pt|debug] [--format png|bmp]
-                            [--resume] [--check] [--profile DIR] [--cpu] [-v]
+                            [--renderer pt|bpt|debug|sppm|amcmcppm]
+                            [--format png|bmp] [--resume] [--check]
+                            [--profile DIR] [--cpu] [-v]
 
-Renders progressive power-of-two exports (000.png, 001.png, ... at 1, 2,
-4, ... spp) of the Kahan-summed film, scaled by the scene's brightness, and
-after each export a checkpoint (`checkpoint.npz`) that `--resume` continues
-from. Runs on the CUDA device, or raises without one; `--cpu` runs the
-plain PyTorch versions on the host. The path tracer is `render_wavefront`.
-The debug renderer (`--renderer debug`) writes the first hit's geometric
-normal, shading normal, shading tangent and distance instead (gnormal,
-snormal, stangent, distance), normals and tangents encoded as 0.5 n + 0.5
-and distance over its largest value. The BPT and photon-mapping renderers
-and scene sharding are not ported yet.
+The path tracer (`render_wavefront`) and the bidirectional path tracer
+(`render_bpt`) render progressive power-of-two exports (000.png, 001.png,
+... at 1, 2, 4, ... spp) of the Kahan-summed film, scaled by the scene's
+brightness, and after each export a checkpoint (`checkpoint.npz`) that
+`--resume` continues from. The photon mappers (`sppm`, and `amcmcppm` with
+its MCMC photon chains) run `--spp` progressive waves of 32,768 photon paths
+each and write `ppm.<format>`. The debug renderer (`--renderer debug`)
+writes the first hit's geometric normal, shading normal, shading tangent
+and distance instead (gnormal, snormal, stangent, distance), normals and
+tangents encoded as 0.5 n + 0.5 and distance over its largest value.
+Without `--renderer` the scene file's method decides. Runs on the CUDA
+device, or raises without one; `--cpu` runs the plain PyTorch versions on
+the host. Scene sharding is not ported yet.
 """
 from __future__ import annotations
 
@@ -23,8 +27,9 @@ import logging
 import os
 import time
 
-# Renderers and options of the reference CLI that wait for their ROADMAP item.
-_UNPORTED = {"bpt": "A14", "sppm": "A15", "amcmcppm": "A15"}
+_RENDERERS = ("pt", "bpt", "debug", "sppm", "amcmcppm")
+# Photon paths per progressive photon-mapping wave, as the reference CLI.
+PPM_PHOTON_PATHS = 1 << 15
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -38,9 +43,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--spectral", action="store_true",
                     help="full spectral rendering (default RGB)")
     ap.add_argument("--renderer",
-                    choices=("pt", "bpt", "debug", "sppm", "amcmcppm"),
-                    default=None, help="override the scene's renderer "
-                    "(pt and debug are ported)")
+                    choices=_RENDERERS, default=None,
+                    help="override the scene's renderer (sppm/amcmcppm: "
+                    "progressive photon mapping)")
     ap.add_argument("--format", choices=("png", "bmp"), default="png",
                     help="image output format (bmp matches the reference)")
     ap.add_argument("--max-depth", type=int, default=100,
@@ -65,8 +70,9 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> dict:
     """Run the CLI on `argv` (default: the process's arguments). Returns
-    what it did: load seconds, lanes, and per pass (spp, seconds,
-    iterations)."""
+    what it did: load seconds, and per pass (spp, seconds, iterations); for
+    `bpt` a pass's third item is its `bpt_batch` calls, base and deep, and
+    `deep_passes` counts the deep ones."""
     args = _parser().parse_args(argv)
     if args.verbose:
         logging.basicConfig(level=logging.INFO, format="%(message)s")
@@ -74,14 +80,11 @@ def main(argv: list[str] | None = None) -> dict:
     if args.scene_shard:
         raise NotImplementedError(
             "--scene-shard is not ported to slr_tpu_torch yet (ROADMAP A16)")
-    if args.renderer in _UNPORTED:
-        raise NotImplementedError(
-            f"the {args.renderer} renderer is not ported to slr_tpu_torch yet "
-            f"(ROADMAP {_UNPORTED[args.renderer]})")
 
     import numpy as np
 
     from .core.device import resolve_device
+    from .render import bpt
     from .render.film import develop, kahan_add, save_bmp, save_png
     from .render.wavefront import DEFAULT_LANE_CAP, render_wavefront
     from .scene.api import load_scene
@@ -109,13 +112,31 @@ def main(argv: list[str] | None = None) -> dict:
         os.makedirs(args.out, exist_ok=True)
         return _write_aovs(scene, width, height, args.out, ext, save_img,
                            device, load_s)
-    if method != "pt":
-        raise NotImplementedError(
-            f"the scene's {method} renderer is not ported to slr_tpu_torch "
-            f"yet (ROADMAP {_UNPORTED.get(method, 'A14-A15')})")
+    if method not in _RENDERERS:
+        raise ValueError(f"the scene's renderer {method!r} is none of "
+                         f"{_RENDERERS}")
     spp = args.spp or int(renderer_cfg.get("samples", 16))
     rng_seed = int(settings.get("rngSeed", 0)) & 0xFFFFFFFF
     os.makedirs(args.out, exist_ok=True)
+    if method in ("sppm", "amcmcppm"):
+        return _render_ppm(scene, method, width, height, spp, rng_seed, args,
+                           save_img, brightness, device, load_s)
+
+    def render_pass(step: int, offset: int):
+        """(image on the host, iterations or bpt_batch calls)."""
+        if method == "bpt":
+            before = dict(bpt.TIERS)
+            img = bpt.render_bpt(scene, width, height, spp=step,
+                                 seed=rng_seed, sample_offset=offset,
+                                 device=device)
+            n_batches = -(-width * height // min(width * height, 65536))
+            deep = bpt.TIERS["deep_passes"] - before["deep_passes"]
+            return img.cpu().numpy(), step * n_batches + deep
+        img, iters = render_wavefront(
+            scene, width, height, spp=step, seed=rng_seed,
+            max_depth=args.max_depth, sample_offset=offset,
+            return_iters=True, device=device)
+        return img.cpu().numpy(), iters
 
     ckpt_path = os.path.join(args.out, "checkpoint")
     accum = comp = None         # Kahan-compensated film on the host
@@ -135,17 +156,14 @@ def main(argv: list[str] | None = None) -> dict:
 
     meter = RenderMeter(width, height, args.max_depth, has_env=scene.has_env)
     passes = []
+    bpt.reset_tiers()
     t0 = time.perf_counter()
     while done < spp:
         step = min(next_export, spp) - done
         before = meter.seconds
         meter.start()
         with profile_trace(args.profile if not passes else None):
-            img, iters = render_wavefront(
-                scene, width, height, spp=step, seed=rng_seed,
-                max_depth=args.max_depth, sample_offset=done,
-                return_iters=True, device=device)
-            img = img.cpu().numpy()
+            img, iters = render_pass(step, done)
         meter.stop(step)
         passes.append((step, meter.seconds - before, iters))
         if args.check:
@@ -166,11 +184,25 @@ def main(argv: list[str] | None = None) -> dict:
                                     "done": done})
         print(f"{done} samples: {out}, {time.perf_counter() - t0:.1f}s "
               f"[{meter.mrays_per_s:.2f} Mrays/s]"
-              + (f", {iters} iterations" if args.verbose else ""))
+              + (f", {iters} {'batches' if method == 'bpt' else 'iterations'}"
+                 if args.verbose else ""))
         img_idx += 1
         next_export *= 2
     print(meter.report())
     lanes = min(width * height, DEFAULT_LANE_CAP)
+    if method == "bpt":
+        if args.verbose and passes:
+            secs = sum(p[1] for p in passes)
+            n = sum(p[0] for p in passes)
+            print(f"{n} spp in {len(passes)} passes: {secs:.3f} s, "
+                  f"{width * height * n / secs / 1e3:.1f} ksamples/s; "
+                  f"lanes clipped at the base cap {bpt.TIERS['clipped']} "
+                  f"of {bpt.TIERS['base_lanes']}, deep passes "
+                  f"{bpt.TIERS['deep_passes']} of {bpt.TIERS['deep_lanes']}"
+                  f" lanes")
+        return dict(load_seconds=load_s, width=width, height=height, spp=done,
+                    passes=passes, deep_passes=bpt.TIERS["deep_passes"],
+                    tiers=dict(bpt.TIERS))
     if args.verbose and passes:
         # What the passes did, as against the meter's nominal casts: one
         # closest-hit and one shadow cast per lane per iteration.
@@ -183,6 +215,49 @@ def main(argv: list[str] | None = None) -> dict:
               f"cast (2 x {lanes} lanes x iterations)")
     return dict(load_seconds=load_s, width=width, height=height, spp=done,
                 lanes=lanes, passes=passes)
+
+
+def _render_ppm(scene, method, width, height, waves, rng_seed, args,
+                save_img, brightness, device, load_s) -> dict:
+    """SPPM or AMCMC-PPM: `waves` progressive passes of PPM_PHOTON_PATHS
+    photon paths (twice that with the chains of amcmcppm), bounces capped
+    at --max-depth."""
+    import numpy as np
+
+    from .render.film import develop
+    from .render.ppm import render_ppm
+    from .utils.metrics import profile_trace
+
+    if scene.stex.spectral:
+        raise ValueError(f"the {method} renderer is RGB only: render the "
+                         f"scene without --spectral")
+    t0 = time.perf_counter()
+    with profile_trace(args.profile):
+        img, state = render_ppm(
+            scene, width, height, n_iterations=max(waves, 1),
+            n_photon_paths=PPM_PHOTON_PATHS, max_bounces=args.max_depth,
+            seed=rng_seed, use_mcmc=(method == "amcmcppm"), device=device,
+            return_state=True)
+        img = img.cpu().numpy()
+    seconds = time.perf_counter() - t0
+    if args.check:
+        bad = ~np.isfinite(img) | (img < 0.0)
+        if bad.any():
+            raise RuntimeError(f"--check: {int(bad.sum())} non-finite/"
+                               f"negative texels in the {method} image")
+    out = os.path.join(args.out, f"ppm.{args.format}")
+    save_img(out, develop(img, brightness, device="cpu"))
+    paths = int(state.n_emitted)
+    print(f"{method} ({max(waves, 1)} waves x {PPM_PHOTON_PATHS} photon "
+          f"paths): {out}, {seconds:.1f}s"
+          + (f", {paths / seconds:.0f} photon paths/s" if args.verbose
+             else ""))
+    return dict(load_seconds=load_s, width=width, height=height,
+                waves=max(waves, 1), seconds=seconds, photon_paths=paths,
+                n_uniform=float(state.n_uniform),
+                n_visible=float(state.n_visible),
+                mutation_size=float(state.mutation_size), file=out,
+                image=img)
 
 
 def _write_aovs(scene, width, height, out, ext, save_img, device,

@@ -126,13 +126,97 @@ def test_refuses_cpu_fallback(tmp_path):
 
 
 @pytest.mark.parametrize("extra, item", [
-    pytest.param(["--renderer", "bpt"], "A14", id="extra1-A14"),
-    pytest.param(["--renderer", "sppm"], "A15", id="extra2-A15"),
-    pytest.param(["--renderer", "amcmcppm"], "A15", id="extra3-A15"),
     pytest.param(["--scene-shard"], "A16", id="extra4-A16")])
 def test_unported_renderers_raise(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         main([SCENE, "--cpu", "--out", str(tmp_path)] + extra)
+
+
+SMALL = [SCENE, "--cpu", "--width", "16", "--height", "12", "--format",
+         "bmp"]
+
+
+def _checkpoints_equal(a, b) -> None:
+    with np.load(a / "checkpoint.npz") as x, np.load(b / "checkpoint.npz") \
+            as y:
+        for k in ("accum", "comp", "done"):
+            np.testing.assert_array_equal(x[k], y[k])
+
+
+def test_bpt_exports_checkpoint_and_resume(tmp_path):
+    """--renderer bpt: the power-of-two exports and checkpoints of the path
+    tracer, and --resume carries on bit for bit."""
+    whole, half = tmp_path / "whole", tmp_path / "half"
+    bpt = SMALL + ["--renderer", "bpt"]
+    result = main(bpt + ["--spp", "4", "--out", str(whole)])
+    assert sorted(os.listdir(whole)) == ["000.bmp", "001.bmp", "002.bmp",
+                                         "checkpoint.npz"]
+    assert [p[0] for p in result["passes"]] == [1, 1, 2]
+    # One bpt_batch call per sample (one batch of lanes), and the deep
+    # re-runs of the lanes clipped at the base cap.
+    assert sum(p[2] for p in result["passes"]) == 4 + result["deep_passes"]
+    with np.load(whole / "checkpoint.npz") as z:
+        film = (z["accum"] + z["comp"]) / int(z["done"])
+    assert film.shape == (12, 16, 3) and np.isfinite(film).all()
+    assert film.mean() > 0.01
+    main(bpt + ["--spp", "2", "--out", str(half)])
+    again = main(bpt + ["--spp", "4", "--out", str(half), "--resume"])
+    assert [p[0] for p in again["passes"]] == [2]
+    _checkpoints_equal(whole, half)
+    assert (whole / "002.bmp").read_bytes() == (half / "002.bmp").read_bytes()
+
+
+def test_scene_method_bpt_renders_bpt(tmp_path):
+    """A scene file whose renderer is BPT renders BPT without --renderer:
+    the same film as --renderer bpt on the PT scene file."""
+    with open(SCENE) as f:
+        text = f.read()
+    assert '"method": "PT"' in text
+    scene = tmp_path / "bpt_scene.txt"
+    scene.write_text(text.replace('"method": "PT"', '"method": "BPT"'))
+    by_file, by_flag = tmp_path / "file", tmp_path / "flag"
+    args = SMALL[1:] + ["--spp", "1"]
+    main([str(scene)] + args + ["--out", str(by_file)])
+    main([SCENE, "--renderer", "bpt"] + args + ["--out", str(by_flag)])
+    _checkpoints_equal(by_file, by_flag)
+
+
+@pytest.mark.parametrize("method", ["sppm", "amcmcppm"])
+def test_photon_mapping_renderers(tmp_path, method):
+    """--renderer sppm / amcmcppm: --spp waves of photon paths (twice as
+    many with the chains), bounces capped at --max-depth, written to
+    ppm.<format>; the chains' bookkeeping within its bounds. The wave is
+    the reference CLI's 32,768 photon paths, cut to 2,048 here: the plain
+    traversal of 65,536 rays a bounce takes minutes on one CPU thread."""
+    from slr_tpu_torch import __main__ as cli
+
+    assert cli.PPM_PHOTON_PATHS == 1 << 15
+    paths = 2048
+    with mock.patch.object(cli, "PPM_PHOTON_PATHS", paths):
+        res = main(SMALL + ["--renderer", method, "--spp", "2",
+                            "--max-depth", "4", "--check", "--out",
+                            str(tmp_path)])
+    assert os.listdir(tmp_path) == ["ppm.bmp"]
+    img = res["image"]
+    assert img.shape == (12, 16, 3) and np.isfinite(img).all()
+    assert img.mean() > 0.01 and (img >= 0).all()
+    mcmc = method == "amcmcppm"
+    assert res["waves"] == 2
+    assert res["photon_paths"] == 2 * paths * (2 if mcmc else 1)
+    if mcmc:
+        assert res["n_uniform"] == 2 * paths
+        assert 0 <= res["n_visible"] <= res["n_uniform"]
+        # float32, clipped to [1e-4, 1]: its floor is float32(1e-4).
+        assert np.float32(1e-4) <= res["mutation_size"] <= 1.0
+    else:
+        assert res["n_uniform"] == 0 and res["mutation_size"] == 1.0
+
+
+def test_photon_mapping_refuses_spectral(tmp_path):
+    """Photon mapping is RGB only, in the reference too."""
+    with pytest.raises(ValueError, match="RGB only"):
+        main(SMALL + ["--spectral", "--renderer", "sppm", "--spp", "1",
+                      "--out", str(tmp_path)])
 
 
 def test_kahan_film_matches_reference():

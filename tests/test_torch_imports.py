@@ -35,6 +35,7 @@ sys.meta_path.insert(0, Refuse())
 import slr_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(slr_tpu_torch.__path__,
                                                "slr_tpu_torch.")]
+assert {{"slr_tpu_torch.render.bpt", "slr_tpu_torch.render.ppm"}} <= set(names)
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
