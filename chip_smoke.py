@@ -20,12 +20,12 @@ caught:
    sorted lane order); times both with CUDA events and computes each
    kernel's bound from this run's inputs. The kernels also count the slot
    tests they executed (`ran`) beside the ones their rays needed (`tests`).
-4. main path: the spectral Cornell box at 1024x768, spp 4, depth 100
+4. main path: the spectral Cornell box at 1024x768, spp 2, depth 100
    through `render_wavefront`; both launch counters must equal the
    iteration count (no alpha: one closest-hit and one any-hit cast each).
-5. profile: a 256x192 render under torch.profiler (launches per
+5. profile: a 256x192 render at depth 16 under torch.profiler (launches per
    iteration, the device's busy share, the kernels' share of it).
-6. cross-check: the same scene at 64x48 on the card and on the CPU (plain
+6. cross-check: the same scene at 48x36 on the card and on the CPU (plain
    versions), compared per pixel.
 7. grass kernels: on the instanced, animated grass field (4,096 blades of
    26 triangles, a quarter of them swaying across the shutter) the
@@ -33,11 +33,11 @@ caught:
    plain versions, on camera, bounce and shadow rays with random shutter
    fractions; the kernels also count the (ray, instanced entry)
    transforms, which enter the bound.
-8. grass main path: the grass field at 512x384, spp 4, depth 100; both
+8. grass main path: the grass field at 512x384, spp 2, depth 100; both
    traversal counters must equal the iteration count, the kernels' own
    count of the instance transforms they ran in that render must be above
    zero for each, and some primary hits must lie on instanced blades. Then
-   its profile, and a smaller grass field at 64x48 on the card against
+   its profile, and a smaller grass field at 48x36 on the card against
    the CPU. The grass field runs on its SBVH tables; `[scene]` compares
    them with its Morton build.
 9. cli: `python -m slr_tpu_torch`'s `main` in-process on
@@ -47,7 +47,7 @@ caught:
    Both launch counters must equal the passes' summed iterations; the last
    export, block-averaged 4x4 to 64x48, is held against
    tests/goldens/ref_parity_1024spp.bmp with tests/test_parity.py's four
-   thresholds. Then the scene at 64x48 on the card against the CPU, and
+   thresholds. Then the scene at 48x36 on the card against the CPU, and
    the module entry point once as a program (64x48, 1 spp).
 10. shading scene: `write_shading_scene` writes a scene file with its
     assets (an EXR sky, PNG image, normal map and alpha cutout, an .assbin
@@ -56,8 +56,8 @@ caught:
     recast set (per-ray tmin, sparse active mask) and its shadow rays (area
     light and environment); `[shading]` renders it through the CLI's main,
     spectral, 1024x768, depth 100, 1 spp: closest-hit launches must be 2 x
-    the iterations + the alpha recasts and any-hit launches 0; then 64x48
-    card against CPU.
+    the iterations + the alpha recasts and any-hit launches 0; then its
+    profile at depth 2 and 48x36 card against CPU at 1 spp.
 11. env: a diffuse sphere under a constant environment at 256x256, spp 16,
     depth 16 (the analytic rho check, background equal to the sky, both
     kernels launched once per iteration), then the equirectangular camera
@@ -66,7 +66,7 @@ caught:
     (render/pt.py `render`) at 1024x768, spp 1, depth 16, in batches of
     65,536 lanes: closest-hit launches must be batches x spp x (1 + depth)
     + alpha recasts, any-hit launches batches x spp x depth; the active
-    rays are counted on the device. Its profile at 256x192, then 64x48
+    rays are counted on the device. Its profile at 256x192, then 48x36
     card against CPU, and the coherence sort on and off on one batch of
     camera rays.
 13. pt kernels: both kernels against their plain versions on the second
@@ -94,8 +94,8 @@ caught:
     counters must equal what the passes imply (per `bpt_batch` call, caps
     - 1 closest-hit casts per subpath and one any-hit cast per eye level).
     Then one base pass profiled (device ops, syncs, busy share).
-19. bpt check: 64x48, flat caps 4 + 4, on the card against the CPU.
-20. bpt cornell: the spectral Cornell box at 1024x768, spp 1, 12 batches
+19. bpt check: 48x36, flat caps 4 + 4, on the card against the CPU.
+20. bpt cornell: the spectral Cornell box at 512x384, spp 1, 3 batches
     of 65,536 lanes, with the same figures and launch gate; `[bpt
     kernels]`: both kernels against their plain versions on its light
     subpath's second bounce (closest hit) and on one whole connection cast
@@ -113,8 +113,40 @@ caught:
     parity scene (RGB, 256x192, 8 waves of 32,768 photon paths, bounces
     capped at 100): finite and non-negative, the mean within rel 0.45 of
     the `[cli]` phase's image, the chains' bookkeeping within its bounds.
-24. prints {"kernels": [...]} (launches summed over every path, per path
+24. dist 1: `render_wavefront_sharded` at world 1 under torchrun with
+    NCCL (a worker process) on the spectral Cornell box at 1024x768, spp 1,
+    depth 100, against `render_wavefront` in the same process: both launch
+    counters equal the iterations; the card-against-card gate (>= 98% of
+    pixels within rtol 1e-3, means within 1%; the share equal bit for bit
+    printed); ksamples/s of both.
+25. dist 2: two worker processes on the one card, gloo: `dryrun(2)`, the
+    sharded wavefront against [dist 1]'s image, `render_sharded` at
+    256x192, depth 16, against `render`, and `render_bpt_sharded` on the
+    parity scene at 256x192, spp 1, flat caps 8 + 8, against `render_bpt`
+    at the same caps; each with the card-against-card gate and its launch
+    gate. The two ranks share the card's SMs: no scaling figure.
+26. scene shard: two gloo ranks on the shading scene (asserted free of
+    instances, which would take the replicated branch): the sharded closest
+    hit and any hit on its camera and shadow rays against the unsharded
+    casts (tests/test_pallas.py's criteria; any hit equal), each kernel
+    against its plain version on rank 0's local tables, each rank's table
+    bytes (chunk tables, shading rows, atlas: <= 1/2 of the whole + one
+    chunk, row or image), and `render_pt_scene_sharded` at 256x192, spp 1,
+    depth 16, against `render`, with its launch gate and its collectives
+    counted and timed.
+27. scene shard cli: `torchrun --nproc_per_node 1 -m slr_tpu_torch` on the
+    shading scene with `--scene-shard` at 1024x768, spectral, 1 spp, NCCL:
+    seconds, peak memory, launches (`render`'s count, shadows on closest
+    hit), collectives per bounce; the image finite, its mean within 5% of
+    [scene shard]'s 256x192 `render`.
+28. oracles: `intersect_plucker` and `intersect_bvh` on Cornell camera
+    rays, `any_hit_brute` on its shadow rays and `intersect_instances`
+    (with the static prefix's `intersect_bvh`) on grass camera rays against
+    closest_hit_kernel and any_hit_kernel (tests/test_pallas.py's
+    criteria).
+29. prints {"kernels": [...]} (launches summed over every path, per path
     in `launches_by_path`), then, as the last line, the device line.
+Worker ranks run this file as `chip_smoke.py --worker NAME ...`.
 """
 import dataclasses
 import json
@@ -159,14 +191,21 @@ from slr_tpu_torch.scene.presets import (
 )
 from slr_tpu_torch.spectrum.rgb import luminance
 
-WIDTH, HEIGHT, SPP, DEPTH, SEED = 1024, 768, 4, 100, 1
-# The card-against-CPU checks at 64x48: the wavefront's at 2 spp and the
+# The wavefront's main path and the grass field at spp 2 (cut for time from
+# 4).
+WIDTH, HEIGHT, SPP, DEPTH, SEED = 1024, 768, 2, 100, 1
+# The card-against-CPU checks at 48x36: the wavefront's at 2 spp and the
 # fixed-depth tracer's at 1 (cut for time: the CPU's plain versions took
 # ~110 s of the script at 4 and 2).
-CHECK_W, CHECK_H, CHECK_SPP, PT_CHECK_SPP = 64, 48, 2, 1
+CHECK_W, CHECK_H, CHECK_SPP, PT_CHECK_SPP = 48, 36, 2, 1   # cut from 64x48
 LANES = DEFAULT_LANE_CAP
 TIMING_RUNS = 25
-PLAIN_RUNS_GRASS = 5      # the plain versions walk ~100 entries a block there
+# The plain versions take 4-2,600 ms a call: their medians are of 3 runs
+# (cut for time from 25, and 5 on the grass field).
+PLAIN_RUNS = 3
+# The Cornell box's profile at depth 16 (cut for time from 100: the
+# profiler reads each device op back on the host).
+PROFILE_DEPTH = 16
 DEV = "cuda"
 # The instanced configuration: the RTC3-class grass field.
 GRASS = dict(n_side=64, blade_segments=13, animated_fraction=0.25)
@@ -182,6 +221,9 @@ CLI_SPP = 32    # cut for time
 # alpha cutouts, a normal map, an .assbin model) through the CLI, spectral,
 # at 1024x768 and depth 100; spp cut to 1 for time.
 SHADE_W, SHADE_H, SHADE_SPP = 1024, 768, 1
+# Its profile at depth 2 and its check at 1 spp (cut for time from 4 and
+# 2).
+SHADE_PROFILE_DEPTH = 2
 # The environment light alone: a diffuse sphere under a constant sky.
 ENV_SIZE, ENV_SPP, ENV_DEPTH, ENV_RHO = 256, 16, 16, 0.6
 EQUI_W, EQUI_H = 256, 128
@@ -201,10 +243,13 @@ BAR_L, BAR_W, BAR_TURN, BAR_RAYS = 1.0, 0.02, 170.0, 64
 
 # The bidirectional path tracer: bench.py's BPT figure (the parity scene at
 # 256x192, spp 8, the default adaptive caps 8 -> 16), the spectral Cornell
-# box at its full 1024x768 (spp 1, 12 batches of 65,536 lanes), the card
-# against the CPU at 64x48 with flat caps 4 + 4, and the CLI at 32 spp
+# box (spp 1, batches of 65,536 lanes), the card
+# against the CPU at 48x36 with flat caps 4 + 4, and the CLI at 32 spp
 # against the reference renderer's 256-spp BPT golden.
 BPT_W, BPT_H, BPT_SPP, BPT_CORNELL_SPP, BPT_CLI_SPP = 256, 192, 8, 1, 32
+# [bpt cornell] at 512x384, 3 batches (cut for time from 1024x768, 12
+# batches).
+BPT_CORNELL_W, BPT_CORNELL_H = 512, 384
 BPT_BASE, BPT_DEEP, BPT_LANES = 8, 16, 65536
 BPT_GOLDEN = os.path.join(ROOT, "tests", "goldens",
                           "ref_parity_bpt_256spp.bmp")
@@ -631,7 +676,7 @@ def check_closest(label, pt, o, d, tmax, active, f=None, tmin=RAY_EPSILON):
     n_inst = int((inst_k != inst_p).sum())
     ms = median_ms(lambda: tv.closest_hit(rays, wl, wtn, cnt, pt))
     plain = median_ms(lambda: tv.closest_hit_plain(rays, wl, cnt, pt),
-                      TIMING_RUNS if f is None else PLAIN_RUNS_GRASS)
+                      PLAIN_RUNS)
     bms, by = bound_ms("closest_hit", (rays, wl, wtn, cnt), pt,
                        (t_k, i_k, inst_k), tests, xforms)
     e_st, e_in = entries_per_block(pt, wl, cnt)
@@ -656,7 +701,7 @@ def check_closest(label, pt, o, d, tmax, active, f=None, tmin=RAY_EPSILON):
                 max_abs_err=err)
 
 
-def check_any(label, pt, o, d, tmax, active, f=None, plain_runs=None):
+def check_any(label, pt, o, d, tmax, active, f=None):
     rays, wl, cnt, wtn, _ = tv.prepare_cast(pt, o, d, RAY_EPSILON, tmax,
                                             active, f=f)
     tests = torch.zeros(rays.shape[0], dtype=torch.int32, device=DEV)
@@ -670,8 +715,7 @@ def check_any(label, pt, o, d, tmax, active, f=None, plain_runs=None):
     n_diff = int((occ_k != occ_p).sum())
     ms = median_ms(lambda: tv.any_hit(rays, wl, wtn, cnt, pt))
     plain = median_ms(lambda: tv.any_hit_plain(rays, wl, cnt, pt),
-                      plain_runs or (TIMING_RUNS if f is None
-                                     else PLAIN_RUNS_GRASS))
+                      PLAIN_RUNS)
     bms, by = bound_ms("any_hit", (rays, wl, wtn, cnt), pt, (occ_k,), tests,
                        xforms)
     e_st, e_in = entries_per_block(pt, wl, cnt)
@@ -708,7 +752,7 @@ def check_xform(pt, o, d, f, rs):
     n_bits = int((out_k != out_p).sum())
     bad = int((diff > 1e-5 * torch.clamp(out_p.abs(), min=1.0)).sum())
     ms = median_ms(lambda: tv.xform_rays(rays, rows))
-    plain = median_ms(lambda: tv.xform_rays_plain(rays, rows))
+    plain = median_ms(lambda: tv.xform_rays_plain(rays, rows), PLAIN_RUNS)
     # Read: ray rows 0-8 (d, m, o) and 12 (f) of the 16, and the instance
     # rows; written: the 9 local rows.
     nbytes = (rays.numel() * rays.element_size() * 10 // tv.ROWS
@@ -1036,8 +1080,9 @@ def phase_profile(scene, tag="profile", depth=DEPTH) -> None:
         "iterations", lambda out: out[1])
 
 
-def phase_cross_check(scene, main_mean: float | None, tag="check") -> None:
-    kw = dict(spp=CHECK_SPP, seed=SEED, max_depth=DEPTH, return_iters=True)
+def phase_cross_check(scene, main_mean: float | None, tag="check",
+                      spp=CHECK_SPP) -> None:
+    kw = dict(spp=spp, seed=SEED, max_depth=DEPTH, return_iters=True)
     t0 = time.perf_counter()
     gpu, it_gpu = render_wavefront(scene, CHECK_W, CHECK_H, **kw)
     gpu = gpu.cpu().numpy()
@@ -1055,7 +1100,7 @@ def phase_cross_check(scene, main_mean: float | None, tag="check") -> None:
     rel = abs(gpu.mean() / cpu.mean() - 1.0)
     n_far = int((~(np.abs(gpu - cpu) <= 1e-3 * np.abs(cpu) + 1e-6)
                    .all(-1)).sum())
-    log(f"[{tag}] {CHECK_W}x{CHECK_H} spp {CHECK_SPP} depth {DEPTH}: card "
+    log(f"[{tag}] {CHECK_W}x{CHECK_H} spp {spp} depth {DEPTH}: card "
         f"{t1 - t0:.2f} s ({it_gpu} iterations), CPU {t2 - t1:.2f} s "
         f"({it_cpu} iterations); pixels within rtol 1e-3 {close:.6f} "
         f"({n_far} beyond), means {gpu.mean():.6f} / {cpu.mean():.6f} (rel "
@@ -1562,7 +1607,7 @@ def phase_pt_profile(scene) -> None:
 
 
 def phase_pt_check(scene) -> None:
-    """`render` at 64x48 on the card against the CPU (plain versions), with
+    """`render` at 48x36 on the card against the CPU (plain versions), with
     phase_cross_check's statistic; then the coherence sort on the card: one
     batch of camera rays traced with and without it."""
     kw = dict(spp=PT_CHECK_SPP, seed=SEED, max_depth=PT_DEPTH)
@@ -1997,10 +2042,10 @@ def phase_bpt(parity) -> dict:
 
 
 def phase_bpt_cornell() -> tuple:
-    """The spectral Cornell box at the reference's 1024x768, spp 1, in 12
-    batches of 65,536 lanes."""
+    """The spectral Cornell box at 512x384, spp 1, in 3 batches of 65,536
+    lanes."""
     scene = cornell_box_spheres(spectral=True)
-    return scene, run_bpt("bpt cornell", scene, WIDTH, HEIGHT,
+    return scene, run_bpt("bpt cornell", scene, BPT_CORNELL_W, BPT_CORNELL_H,
                           BPT_CORNELL_SPP, ray_batch=BPT_LANES)
 
 
@@ -2039,11 +2084,11 @@ def phase_bpt_kernels(scene) -> dict:
     return {"closest_hit": check_closest("bpt light bounce 2", pt, o, d,
                                          float("inf"), act),
             "any_hit": check_any("bpt connection t=2", pt, o_s, d_s, tmax_s,
-                                 act_s, plain_runs=PLAIN_RUNS_GRASS)}
+                                 act_s)}
 
 
 def phase_bpt_check(parity) -> None:
-    """`render_bpt` at 64x48, flat caps 4 + 4, on the card and on the CPU
+    """`render_bpt` at 48x36, flat caps 4 + 4, on the card and on the CPU
     (plain versions): >= 98% of pixels within rtol 1e-3, means within 1%.
     The film's index_add_ adds atomically on the card, so its last bits
     may differ from the CPU's sequential sums."""
@@ -2225,6 +2270,592 @@ def phase_ppm_cli(tmp, pt_mean) -> dict:
     return dict(launches=launches, **out)
 
 
+# ---------------------------------------------------------------------------
+# Rendering across ranks (torch.distributed) and the intersector oracles
+# ---------------------------------------------------------------------------
+
+# [dist 1] / [dist 2]: the sharded wavefront on the spectral Cornell box at
+# 1024x768, spp 1, depth 100; the pixel-sharded fixed-depth tracer at
+# 256x192, depth 16; the sharded BPT on the parity scene at 256x192, spp 1,
+# flat caps 8 + 8. [scene shard]: the shading scene's casts and a 256x192
+# render (spp 1, depth 16) on two ranks; [scene shard cli]: the CLI's
+# --scene-shard on it at 1024x768 under torchrun. [oracles]: 16,384 rays a
+# set.
+DIST_W, DIST_H, DIST_SPP = 1024, 768, 1
+DIST_PT_W, DIST_PT_H, DIST_PT_DEPTH = 256, 192, 16
+DIST_BPT_CAPS = 8
+SHARD_W, SHARD_H, SHARD_DEPTH = 256, 192, 16
+ORACLE_RAYS = 16384
+SELF = os.path.abspath(__file__)
+
+
+def _report(out_dir, **record) -> None:
+    """The JSON line a worker rank hands the parent, in a file of its own
+    (the ranks' standard outputs interleave)."""
+    path = os.path.join(out_dir, f"{record['phase']}.rank{record['rank']}"
+                        ".jsonl")
+    with open(path, "a") as f:
+        f.write(json.dumps(record) + "\n")
+
+
+def _records(out_dir, phase) -> list:
+    out = []
+    for name in sorted(os.listdir(out_dir)):
+        if name.startswith(phase + ".rank") and name.endswith(".jsonl"):
+            with open(os.path.join(out_dir, name)) as f:
+                out += [json.loads(line) for line in f if line.strip()]
+    return out
+
+
+def _torchrun(tag, n, args, timeout) -> str:
+    """`torchrun --standalone --nproc_per_node n ARGS` from the repo root;
+    fails the phase if any rank fails. Returns the output."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={n}"] + args
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="4")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    for line in proc.stdout.splitlines():
+        log(f"[{tag}] | {line}")
+    if proc.returncode != 0:
+        log(out[-6000:])
+        raise AssertionError(f"{tag}: torchrun exited {proc.returncode}")
+    log(f"[{tag}] {n} rank(s) in {secs:.1f} s (process start included)")
+    return proc.stdout
+
+
+def card_gate(tag, got, want) -> dict:
+    """Card against card: >= 98% of pixels with every channel within rtol
+    1e-3 (atol 1e-6), the means within 1%; the share of pixels equal bit
+    for bit is printed, never promised (closest-hit ties can resolve
+    another way when a ray's block-mates change)."""
+    got = np.asarray(got)
+    want = np.asarray(want)
+    close, rel, n_far = _agreement(got, want)
+    same = float((got == want).all(-1).mean())
+    log(f"[{tag}] pixels within rtol 1e-3 {close:.6f} ({n_far} beyond), "
+        f"equal bit for bit {same:.6f}, means {got.mean():.6f} / "
+        f"{want.mean():.6f} (rel {rel:.2e})")
+    if got.shape != want.shape or close < 0.98 or rel >= 0.01 \
+            or not np.isfinite(got).all():
+        raise AssertionError(f"{tag}: the sharded image disagrees")
+    return dict(close=close, rel=rel, bit_equal=same)
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    tv.reset_launches()
+    tpt.reset_alpha_recasts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(tv.LAUNCHES)
+
+
+def _gate_launches(tag, launches, want) -> None:
+    if launches != want:
+        raise AssertionError(f"{tag} launch counts {launches} != {want}")
+
+
+def worker_dist1(out_dir) -> None:
+    """World 1 under torchrun, NCCL: `render_wavefront_sharded` against
+    `render_wavefront` in the same process."""
+    from slr_tpu_torch.parallel.distributed import init_distributed, shutdown
+    from slr_tpu_torch.parallel.mesh import make_mesh, render_wavefront_sharded
+
+    assert init_distributed()
+    mesh = make_mesh()
+    if (mesh.size, mesh.backend) != (1, "nccl"):
+        raise AssertionError(f"world {mesh.size} on {mesh.backend}")
+    scene = cornell_box_spheres(spectral=True)
+    render_wavefront_sharded(scene, 64, 48, 1, mesh, seed=SEED)
+    render_wavefront(scene, 64, 48, 1, seed=SEED)
+    kw = dict(seed=SEED, max_depth=DEPTH, return_iters=True)
+    (img, it), secs, launches = _timed(lambda: render_wavefront_sharded(
+        scene, DIST_W, DIST_H, DIST_SPP, mesh, **kw))
+    (ref, it_ref), secs_ref, launches_ref = _timed(lambda: render_wavefront(
+        scene, DIST_W, DIST_H, DIST_SPP, **kw))
+    for name, l, i in (("sharded", launches, it), ("single", launches_ref,
+                                                   it_ref)):
+        _gate_launches(f"dist 1 {name}", l, {"closest_hit": i,
+                                             "any_hit": i, "xform_rays": 0})
+    img, ref = img.cpu().numpy(), ref.cpu().numpy()
+    gate = card_gate("dist 1", img, ref)
+    np.save(os.path.join(out_dir, "dist1.npy"), img)
+    ks = DIST_W * DIST_H * DIST_SPP / 1e3
+    log(f"[dist 1] {DIST_W}x{DIST_H} spp {DIST_SPP} depth {DEPTH}: sharded "
+        f"{secs:.3f} s ({ks / secs:.1f} ksamples/s, {it} iterations), "
+        f"render_wavefront {secs_ref:.3f} s ({ks / secs_ref:.1f} "
+        f"ksamples/s, {it_ref} iterations)")
+    _report(out_dir, phase="dist1", rank=0, launches=launches, iterations=it,
+            seconds=secs, seconds_single=secs_ref, **gate)
+    shutdown()
+
+
+def worker_dist2(out_dir) -> None:
+    """World 2 on one card, gloo: the dryrun, then the sharded wavefront
+    against [dist 1]'s image, the pixel-sharded fixed-depth tracer against
+    `render`, and the sharded BPT against `render_bpt` at the same flat
+    caps; the references run on rank 0 while rank 1 waits."""
+    from slr_tpu_torch.parallel.distributed import init_distributed, shutdown
+    from slr_tpu_torch.parallel.mesh import (
+        dryrun,
+        make_mesh,
+        render_bpt_sharded,
+        render_sharded,
+        render_wavefront_sharded,
+    )
+    from slr_tpu_torch.spectrum.spectral import strata_to_rgb
+
+    assert init_distributed(backend="gloo")
+    mesh = make_mesh()
+    if (mesh.size, mesh.backend) != (2, "gloo"):
+        raise AssertionError(f"world {mesh.size} on {mesh.backend}")
+    rank0 = mesh.rank == 0
+    dryrun(2)
+    scene = cornell_box_spheres(spectral=True)
+    rec = dict(phase="dist2", rank=mesh.rank)
+
+    (img, it), secs, launches = _timed(lambda: render_wavefront_sharded(
+        scene, DIST_W, DIST_H, DIST_SPP, mesh, seed=SEED, max_depth=DEPTH,
+        return_iters=True))
+    _gate_launches("dist 2 wavefront", launches,
+                   {"closest_hit": it, "any_hit": it, "xform_rays": 0})
+    rec["wavefront"] = dict(launches=launches, iterations=it, seconds=secs)
+    if rank0:
+        rec["wavefront"].update(card_gate(
+            "dist 2 wavefront", img.cpu().numpy(),
+            np.load(os.path.join(out_dir, "dist1.npy"))))
+
+    film, secs, launches = _timed(lambda: render_sharded(
+        scene, DIST_PT_W, DIST_PT_H, 1, mesh, seed=SEED,
+        max_depth=DIST_PT_DEPTH))
+    batches = -(-(DIST_PT_W * DIST_PT_H // mesh.size) // 65536)
+    _gate_launches("dist 2 render_sharded", launches, {
+        "closest_hit": batches * (1 + DIST_PT_DEPTH),
+        "any_hit": batches * DIST_PT_DEPTH, "xform_rays": 0})
+    rec["pt"] = dict(launches=launches, seconds=secs)
+    if rank0:
+        want = tpt.render(scene, DIST_PT_W, DIST_PT_H, 1, seed=SEED,
+                          max_depth=DIST_PT_DEPTH)
+        rec["pt"].update(card_gate("dist 2 render_sharded",
+                                   strata_to_rgb(film).cpu().numpy(),
+                                   want.cpu().numpy()))
+    mesh.barrier()
+
+    parity, _, _ = load_scene(PARITY, spectral=True)
+    caps = dict(max_light_verts=DIST_BPT_CAPS, max_eye_verts=DIST_BPT_CAPS)
+    film, secs, launches = _timed(lambda: render_bpt_sharded(
+        parity, BPT_W, BPT_H, 1, mesh, seed=SEED, **caps))
+    _gate_launches("dist 2 render_bpt_sharded", launches, {
+        "closest_hit": 2 * (DIST_BPT_CAPS - 1), "any_hit": DIST_BPT_CAPS,
+        "xform_rays": 0})
+    rec["bpt"] = dict(launches=launches, seconds=secs)
+    if rank0:
+        want = tbpt.render_bpt(parity, BPT_W, BPT_H, 1, seed=SEED, **caps)
+        rec["bpt"].update(card_gate("dist 2 render_bpt_sharded",
+                                    strata_to_rgb(film).cpu().numpy(),
+                                    want.cpu().numpy()))
+    mesh.barrier()
+    _report(out_dir, **rec)
+    shutdown()
+
+
+def _broadcast0(mesh, x):
+    """Rank 0's tensor on every rank, bit for bit (int32 views summed with
+    zeros)."""
+    from slr_tpu_torch.parallel.scene_shard import _as_bits, _from_bits
+
+    bits = _as_bits(x.float()) if mesh.rank == 0 else torch.zeros(
+        x.shape, dtype=torch.int32, device=DEV)
+    return _from_bits(mesh.all_reduce(bits))
+
+
+def _reduce_local(mesh, pt, r, name, out):
+    """A local cast's result over the ranks: the closest hit's (t, rank)
+    reduction to (t, triangle), or the OR of the occlusion."""
+    if name == "any_hit":
+        return (mesh.all_reduce(out[0].reshape(-1)[:r]) > 0,)
+    t, idx = out[0].reshape(-1)[:r], out[1].reshape(-1)[:r].long()
+    tri = torch.where(idx >= 0, pt.remap.long()[idx.clamp(min=0)], -1)
+    key = torch.where(idx >= 0, t, float("inf"))
+    t_min = mesh.all_reduce(key, "min")
+    winner = key <= t_min
+    wr = mesh.all_reduce(torch.where(winner, mesh.rank, 1 << 30), "min")
+    mine = winner & (wr == mesh.rank) & (idx >= 0)
+    return t_min, mesh.all_reduce(torch.where(mine, tri + 1, 0)) - 1
+
+
+def check_local_tables(sh, mesh, name, label, o, d, tmax, active) -> dict:
+    """A kernel against its plain version on every rank's local tables,
+    each reduced over the ranks as the sharded casts reduce (a rank's
+    chunks hold chopped SBVH boxes whose triangles' other parts lie in
+    another rank's chunks: on one rank's tables the kernel, which culls per
+    ray, and the plain version, which tests every ray of a listed block,
+    rightly differ there, and agree once reduced). Closest hit:
+    tests/test_pallas.py's criteria; any hit: equal. Timed on rank 0."""
+    pt = sh.pt
+    r = o.shape[0]
+    rays, wl, cnt, wtn, _ = tv.prepare_cast(pt, o, d, RAY_EPSILON, tmax,
+                                            active)
+    tests = torch.zeros(rays.shape[0], dtype=torch.int32, device=DEV)
+    xforms = torch.zeros_like(tests)
+    kern = getattr(tv, name)
+    plain = getattr(tv, name + "_plain")
+    out_k = kern(rays, wl, wtn, cnt, pt, tests=tests, xforms=xforms)
+    out_p = plain(rays, wl, cnt, pt)
+    out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+    out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+    local = int((out_k[0] != out_p[0]).sum())
+    red_k = _reduce_local(mesh, pt, r, name, out_k)
+    red_p = _reduce_local(mesh, pt, r, name, out_p)
+    if name == "any_hit":
+        n_bad = int((red_k[0] != red_p[0]).sum())
+        err = float((red_k[0].float() - red_p[0].float()).abs().max())
+        text = f"occluded {int(red_p[0].sum())}, mismatches {n_bad} of {r}"
+    else:
+        (t_k, tri_k), (t_p, tri_p) = red_k, red_p
+        h_k, h_p = tri_k >= 0, tri_p >= 0
+        n_bad = int((h_k != h_p).sum())
+        same = (tri_k == tri_p) | ((t_k - t_p).abs()
+                                   <= 1e-4 * torch.clamp(t_p, min=1.0))
+        share = float(same[h_p].float().mean())
+        n_bad += int(share <= 0.995)
+        err = float((t_k - t_p)[h_p & h_k].abs().max())
+        text = (f"hits {int(h_p.sum())}, mask mismatches "
+                f"{int((h_k != h_p).sum())}, same-or-close {share:.6f}, "
+                f"max |dt| {err:.3g}")
+    out = dict(max_abs_err=err)
+    if mesh.rank == 0:
+        ms = median_ms(lambda: kern(rays, wl, wtn, cnt, pt))
+        plain_ms = median_ms(lambda: plain(rays, wl, cnt, pt), PLAIN_RUNS)
+        bms, by = bound_ms(name, (rays, wl, wtn, cnt), pt, out_k, tests,
+                           xforms)
+        out.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+        log(f"[scene shard kernels] {name} {label} on rank 0's tables "
+            f"({pt.n_chunks} chunks): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}), tests {int(tests.sum())}; rays "
+            f"whose result differs on this rank's tables alone {local}; "
+            f"reduced over "
+            f"the ranks: {text}")
+    if n_bad:
+        raise AssertionError(f"{name} disagrees with its plain version on "
+                             f"the local tables ({label})")
+    return out
+
+
+def worker_scene_shard(path, out_dir) -> None:
+    """World 2, gloo, on the shading scene: the sharded casts against the
+    unsharded ones, each kernel against its plain version on rank 0's
+    local tables, each rank's table bytes, and `render_pt_scene_sharded`
+    against `render` (rank 0 holds the whole scene for the references)."""
+    from slr_tpu_torch.parallel import mesh as pmesh
+    from slr_tpu_torch.parallel import scene_shard as ss
+    from slr_tpu_torch.parallel.distributed import init_distributed, shutdown
+
+    assert init_distributed(backend="gloo")
+    mesh = pmesh.make_mesh()
+    rank0 = mesh.rank == 0
+    host, _, _ = load_scene(path, spectral=True, device="cpu")
+    if host.instances is not None:
+        raise AssertionError("the shading scene has instances: the "
+                             "scene-sharded path would render it replicated")
+    torch.cuda.reset_peak_memory_stats()
+    sh = ss.shard_scene(host, mesh)
+    torch.cuda.synchronize()
+    rec = dict(phase="scene_shard", rank=mesh.rank, bytes=sh.bytes,
+               whole=sh.whole_bytes, chunk=sh.chunk_bytes,
+               image=sh.image_bytes,
+               shard_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    limits = dict(pallas_tris=sh.chunk_bytes, tri_rows=4 * 40,
+                  atlas=sh.image_bytes)
+    for k, extra in limits.items():
+        if not sh.bytes[k] <= sh.whole_bytes[k] / mesh.size + extra:
+            raise AssertionError(f"rank {mesh.rank} holds {sh.bytes[k]} B of "
+                                 f"{k}, more than 1/{mesh.size} of "
+                                 f"{sh.whole_bytes[k]} + {extra}")
+    log(f"[scene shard] rank {mesh.rank}: table bytes {sh.bytes} of "
+        f"{sh.whole_bytes} (chunk {sh.chunk_bytes} B, image "
+        f"{sh.image_bytes} B)")
+
+    full = host.to(DEV) if rank0 else None
+    sets = shading_ray_sets(full) if rank0 else None
+    names = ("camera", "shadow")
+    rays = {}
+    for name in names:
+        o, d, tmax, act = (sets[name][:4] if rank0
+                           else (torch.zeros((LANES, 3), device=DEV),) * 2
+                           + (torch.zeros(LANES, device=DEV),
+                              torch.zeros(LANES, device=DEV)))
+        if not isinstance(tmax, torch.Tensor):
+            tmax = torch.full((LANES,), float(tmax), device=DEV)
+        act = (torch.ones(LANES, device=DEV) if act is None
+               else act.float())
+        o, d, tmax, act = (_broadcast0(mesh, x) for x in (o, d, tmax, act))
+        rays[name] = (o, d, tmax, act > 0)
+
+    o, d, tmax, act = rays["camera"]
+    pmesh.reset_collectives()
+    hit, _, l_c = _timed(lambda: ss.intersect_scene_sharded(sh, mesh, o, d))
+    per_cast = pmesh.COLLECTIVES["calls"]
+    o_s, d_s, tmax_s, act_s = rays["shadow"]
+    occ, _, l_a = _timed(lambda: ss.occluded_scene_sharded(
+        sh, mesh, o_s, d_s, RAY_EPSILON, tmax_s, act_s))
+    casts = {k: l_c[k] + l_a[k] for k in l_c}
+    if rank0:
+        want = scene_intersect(full, o, d)
+        h = {k: getattr(hit, k) for k in ("t", "tri", "mask")}
+        w = {k: getattr(want, k) for k in ("t", "tri", "mask")}
+        n_mask = int((h["mask"] != w["mask"]).sum())
+        m = w["mask"]
+        same = ((h["tri"] == w["tri"]) | ((h["t"] - w["t"]).abs()
+                <= 1e-4 * torch.clamp(w["t"], min=1.0)))[m]
+        share = float(same.float().mean())
+        occ_want = tv.anyhit_pallas(full.geometry, full.pallas_tris, o_s, d_s,
+                                    RAY_EPSILON, tmax_s, active=act_s)
+        n_occ = int((occ != occ_want).sum())
+        log(f"[scene shard] closest hit on {LANES} camera rays: "
+            f"{per_cast} collectives a cast, mask mismatches {n_mask}, "
+            f"same-or-close {share:.6f}, hits {int(m.sum())}; any hit on "
+            f"{int(act_s.sum())} shadow rays: mismatches {n_occ}, occluded "
+            f"{int(occ_want.sum())}")
+        if n_mask or share <= 0.995 or n_occ:
+            raise AssertionError("the sharded casts disagree with the "
+                                 "unsharded ones")
+    rec["kernels"] = {
+        "closest_hit": check_local_tables(sh, mesh, "closest_hit",
+                                          "camera", o, d, float("inf"),
+                                          None),
+        "any_hit": check_local_tables(sh, mesh, "any_hit", "shadow", o_s,
+                                      d_s, tmax_s, act_s)}
+    mesh.barrier()
+
+    # The render: its collectives timed (a device sync around each).
+    pmesh.reset_collectives()
+    pmesh.track_collectives(True)
+    kw = dict(seed=SEED, max_depth=SHARD_DEPTH)
+    img, secs, launches = _timed(lambda: ss.render_pt_scene_sharded(
+        sh, mesh, SHARD_W, SHARD_H, 1, **kw))
+    pmesh.track_collectives(False)
+    coll = dict(pmesh.COLLECTIVES)
+    recasts = tpt.ALPHA_RECASTS["casts"]
+    batches = -(-SHARD_W * SHARD_H // 65536)
+    steps = batches * (1 + SHARD_DEPTH)
+    _gate_launches("scene shard render", launches, {
+        "closest_hit": batches * (1 + 2 * SHARD_DEPTH) + recasts,
+        "any_hit": 0, "xform_rays": 0})
+    rec["render"] = dict(launches=launches, seconds=secs, recasts=recasts,
+                         collectives=coll["calls"],
+                         collective_seconds=coll["seconds"],
+                         collective_bytes=coll["bytes"])
+    rec["casts"] = casts
+    log(f"[scene shard] rank {mesh.rank}: {SHARD_W}x{SHARD_H} spp 1 depth "
+        f"{SHARD_DEPTH}: {secs:.3f} s, launches {launches}, alpha recasts "
+        f"{recasts}; {coll['calls']} collectives ({coll['calls'] / steps:.1f}"
+        f" a bounce), {coll['seconds']:.3f} s in them "
+        f"({coll['seconds'] / max(coll['calls'], 1) * 1e3:.3f} ms each), "
+        f"{coll['bytes'] / 2 ** 20:.1f} MiB")
+    if rank0:
+        want, secs_ref, _ = _timed(lambda: tpt.render(full, SHARD_W, SHARD_H,
+                                                      1, **kw))
+        log(f"[scene shard] unsharded `render` of the same frame: "
+            f"{secs_ref:.3f} s")
+        rec["render"].update(card_gate("scene shard render",
+                                       img.cpu().numpy(), want.cpu().numpy()),
+                             seconds_unsharded=secs_ref)
+        with open(os.path.join(out_dir, "scene_shard.json"), "w") as f:
+            json.dump(dict(mean=float(want.mean())), f)
+    mesh.barrier()
+    _report(out_dir, **rec)
+    shutdown()
+
+
+def phase_dist(tmp) -> dict:
+    """[dist 1] and [dist 2]: worker processes under torchrun."""
+    _torchrun("dist 1", 1, [SELF, "--worker", "dist1", tmp], 300)
+    d1, = _records(tmp, "dist1")
+    _torchrun("dist 2", 2, [SELF, "--worker", "dist2", tmp], 600)
+    recs = _records(tmp, "dist2")
+    if sorted(r["rank"] for r in recs) != [0, 1]:
+        raise AssertionError(f"dist 2 reports {recs}")
+    ks = DIST_W * DIST_H * DIST_SPP / 1e3
+    for r in recs:
+        w = r["wavefront"]
+        log(f"[dist 2] rank {r['rank']}: wavefront {w['seconds']:.3f} s "
+            f"({ks / w['seconds']:.1f} ksamples/s over the two ranks' "
+            f"shared card), {w['iterations']} iterations; render_sharded "
+            f"{r['pt']['seconds']:.3f} s; render_bpt_sharded "
+            f"{r['bpt']['seconds']:.3f} s")
+    launches = {k: d1["launches"][k] + sum(
+        r[p]["launches"][k] for r in recs for p in ("wavefront", "pt",
+                                                      "bpt"))
+        for k in d1["launches"]}
+    log(f"[dist] launches on the sharded paths {launches}")
+    return dict(launches=launches, dist1=d1, dist2=recs)
+
+
+def phase_scene_shard(tmp, path) -> dict:
+    _torchrun("scene shard", 2, [SELF, "--worker", "scene_shard", path, tmp],
+              900)
+    recs = _records(tmp, "scene_shard")
+    if sorted(r["rank"] for r in recs) != [0, 1]:
+        raise AssertionError(f"scene shard reports {recs}")
+    launches = {k: sum(r["render"]["launches"][k] + r["casts"][k]
+                       for r in recs) for k in recs[0]["casts"]}
+    r0 = next(r for r in recs if r["rank"] == 0)
+    log(f"[scene shard] launches {launches}")
+    return dict(launches=launches, ranks=recs, kernels=r0["kernels"],
+                render=r0["render"])
+
+
+def phase_scene_shard_cli(tmp, path) -> dict:
+    """`torchrun --nproc_per_node 1 -m slr_tpu_torch <shading scene>
+    --scene-shard` at 1024x768, spectral, 1 spp, NCCL: the fixed-depth
+    tracer at depth 16 over the sharded tables, shadow rays through closest
+    hit (an alpha scene). Gates: the launches, a finite image (negative
+    linear sRGB only on noisy spectral pixels), the mean within 5% of
+    [scene shard]'s 256x192 `render`."""
+    out = os.path.join(tmp, "scene_shard_cli")
+    stdout = _torchrun("scene shard cli", 1, [
+        "-m", "slr_tpu_torch", path, "--scene-shard", "--spectral", "--spp",
+        "1", "--width", str(SHADE_W), "--height", str(SHADE_H), "--max-depth",
+        str(SHARD_DEPTH), "--format",
+        "bmp", "--out", out, "-v"], 900)
+    m = re.search(r"kernel launches (\{[^}]*\}), alpha recasts (\d+), "
+                  r"collectives (\d+) \((\d+) B\), peak ([0-9.]+|nan) GiB",
+                  stdout)
+    s = re.search(r"1 spp in 1 passes: ([0-9.]+) s, (\d+) render batches",
+                  stdout)
+    if not m or not s:
+        raise AssertionError("scene shard cli: no verbose report")
+    launches = json.loads(m.group(1).replace("'", '"'))
+    recasts, coll, coll_b = (int(m.group(k)) for k in (2, 3, 4))
+    peak, secs, batches = float(m.group(5)), float(s.group(1)), int(
+        s.group(2))
+    steps = batches * (1 + SHARD_DEPTH)
+    _gate_launches("scene shard cli", launches, {
+        "closest_hit": steps + batches * SHARD_DEPTH + recasts,
+        "any_hit": 0, "xform_rays": 0})
+    with np.load(os.path.join(out, "checkpoint.npz")) as ck:
+        film = (ck["accum"] + ck["comp"]) / int(ck["done"])
+    with open(os.path.join(tmp, "scene_shard.json")) as f:
+        small = json.load(f)["mean"]
+    gap = abs(float(film.mean()) / small - 1.0)
+    neg = float((film < 0).mean())
+    img = read_bmp(os.path.join(out, "000.bmp"))
+    log(f"[scene shard cli] {SHADE_W}x{SHADE_H} spp 1 depth {SHARD_DEPTH}: "
+        f"{secs:.3f} s ({SHADE_W * SHADE_H / secs / 1e3:.1f} ksamples/s), "
+        f"{batches} batches, launches {launches}, alpha recasts {recasts}, "
+        f"{coll} collectives ({coll / steps:.1f} a bounce step, "
+        f"{coll_b / 2 ** 20:.1f} MiB), peak {peak:.3f} GiB; image mean "
+        f"{film.mean():.6f} against the 256x192 render's {small:.6f} (gap "
+        f"{gap:.4f}), negative values {neg:.5f}")
+    if not np.isfinite(film).all() or gap >= 0.05 or neg >= 0.05 \
+            or img.shape != (SHADE_H, SHADE_W, 3) or not img.mean() > 5.0:
+        raise AssertionError("scene shard cli: implausible image")
+    return dict(launches=launches, seconds=secs, peak_gib=peak,
+                collectives=coll, recasts=recasts, mean_gap=gap)
+
+
+def _hit_criteria(tag, got, want) -> float:
+    m = want.mask
+    n_mask = int((got.mask != m).sum())
+    same = (got.tri == want.tri) | ((got.t - want.t).abs()
+                                    <= 1e-4 * torch.clamp(want.t, min=1.0))
+    if got.inst is not None and want.inst is not None:
+        same = same & ((got.inst == want.inst) | ((got.t - want.t).abs()
+                       <= 1e-4 * torch.clamp(want.t, min=1.0)))
+    share = float(same[m].float().mean())
+    log(f"[oracles] {tag}: hits {int(m.sum())}, mask mismatches {n_mask}, "
+        f"same-or-close {share:.6f}")
+    if n_mask or share <= 0.995:
+        raise AssertionError(f"{tag}: the kernel disagrees with the oracle")
+    return share
+
+
+def phase_oracles() -> dict:
+    """The kernels' casts against the port's oracles on the card:
+    `intersect_plucker` and `intersect_bvh` on the Cornell box's camera
+    rays, `any_hit_brute` on its shadow rays, and the two-level
+    `intersect_instances` (with the static prefix's BVH traversal) on the
+    grass field's camera rays at random shutter fractions;
+    tests/test_pallas.py's criteria, any hit equal."""
+    from slr_tpu_torch.accel.intersect import any_hit_brute
+    from slr_tpu_torch.accel.lbvh import intersect_bvh
+    from slr_tpu_torch.accel.plucker import build_plucker, intersect_plucker
+    from slr_tpu_torch.accel.twolevel import intersect_scene_oracle
+
+    rs = np.random.RandomState(5)
+    scene = cornell_box_spheres(spectral=True)
+    n = ORACLE_RAYS
+    o, d = camera_rays(scene, n, rs)
+    o_s, d_s, tmax_s = shadow_rays(n, rs)
+    grass = grass_field(**GRASS, two_level=True)
+    pid = torch.as_tensor(rs.choice(GRASS_W * GRASS_H, n, replace=False),
+                          device=DEV)
+    g_rays = _camera_ray(grass, pid, torch.zeros_like(pid), SEED, GRASS_W,
+                         GRASS_H)
+    f = _cuda_tensor(rs.rand(n))
+    torch.cuda.synchronize()
+    tv.reset_launches()
+    k_c = scene_intersect(scene, o, d)
+    k_a = tv.anyhit_pallas(scene.geometry, scene.pallas_tris, o_s, d_s,
+                           RAY_EPSILON, tmax_s)
+    k_g = scene_intersect(grass, g_rays.o, g_rays.d, f=f)
+    torch.cuda.synchronize()
+    launches = dict(tv.LAUNCHES)
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    plk = timed("plucker", lambda: intersect_plucker(
+        scene.geometry, build_plucker(scene.geometry), o, d))
+    bvh = timed("bvh", lambda: intersect_bvh(scene.geometry, scene.bvh, o,
+                                             d))
+    brute = timed("any_hit_brute", lambda: any_hit_brute(
+        scene.geometry, o_s, d_s, RAY_EPSILON, tmax_s))
+    two = timed("two_level", lambda: intersect_scene_oracle(
+        grass, g_rays.o, g_rays.d, f=f))
+    out = dict(launches=launches, seconds=times)
+    out["plucker"] = _hit_criteria("Cornell camera: closest_hit_kernel vs "
+                                   "intersect_plucker", k_c, plk)
+    out["bvh"] = _hit_criteria("Cornell camera: closest_hit_kernel vs "
+                               "intersect_bvh", k_c, bvh)
+    n_occ = int((k_a != brute).sum())
+    log(f"[oracles] Cornell shadow: any_hit_kernel vs any_hit_brute: "
+        f"mismatches {n_occ} of {n}, occluded {int(brute.sum())}")
+    if n_occ:
+        raise AssertionError("any_hit_kernel disagrees with any_hit_brute")
+    out["two_level"] = _hit_criteria(
+        "grass camera: closest_hit_kernel vs intersect_instances + "
+        "intersect_bvh", k_g, two)
+    if not int((k_g.inst >= 0).sum()) > 0:
+        raise AssertionError("no grass ray hit an instance")
+    log(f"[oracles] {n} rays a set; oracle seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f"; kernel casts launched {launches}")
+    return out
+
+
+def worker(argv) -> None:
+    """`python3 chip_smoke.py --worker NAME ARGS`: one rank of a phase run
+    under torchrun."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name, args = argv[0], argv[1:]
+    {"dist1": worker_dist1, "dist2": worker_dist2,
+     "scene_shard": worker_scene_shard}[name](*args)
+
+
 _LAP = [time.perf_counter()]
 
 
@@ -2248,7 +2879,7 @@ def main() -> None:
     del morton
     lap("Cornell tables and kernels")
     main_path = phase_main_path(scene)
-    phase_profile(scene)
+    phase_profile(scene, depth=PROFILE_DEPTH)
     phase_cross_check(scene, main_path["mean"])
     lap("Cornell main path, profile, check")
 
@@ -2283,9 +2914,9 @@ def main() -> None:
         lap("shading scene and kernels")
         shading = phase_shading(shade_path, tmp)
         lap("shading")
-        phase_profile(shade, "shading profile", depth=4)
+        phase_profile(shade, "shading profile", depth=SHADE_PROFILE_DEPTH)
         lap("shading profile")
-        phase_cross_check(shade, None, "shading check")
+        phase_cross_check(shade, None, "shading check", spp=1)
         del shade
         lap("shading check")
     env = phase_env()
@@ -2323,12 +2954,24 @@ def main() -> None:
         lap("ppm")
         ppm_cli = phase_ppm_cli(tmp, cli["film_mean"])
         lap("ppm cli")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist = phase_dist(tmp)
+        lap("dist 1 and dist 2")
+        shade_path = write_shading_scene(os.path.join(tmp, "shading"))
+        scene_shard = phase_scene_shard(tmp, shade_path)
+        lap("scene shard")
+        scene_shard_cli = phase_scene_shard_cli(tmp, shade_path)
+        lap("scene shard cli")
+    oracles = phase_oracles()
+    lap("oracles")
 
     paths = {"cornell": main_path, "grass": g_main, "cli": cli,
              "shading": shading, "env": env, "pt": pt_path,
              "pt_golden": pt_golden, "grad": grad, "debug": debug,
              "bpt": bpt, "bpt_cornell": bpt_cornell, "bpt_cli": bpt_cli,
-             "ppm": ppm, "ppm_cli": ppm_cli}
+             "ppm": ppm, "ppm_cli": ppm_cli, "dist": dist,
+             "scene_shard": scene_shard, "scene_shard_cli": scene_shard_cli,
+             "oracles": oracles}
     kernels = []
     for name in ("closest_hit", "any_hit"):
         kernels.append(dict(
@@ -2357,6 +3000,8 @@ def main() -> None:
         k["motion_box"] = motion[k["name"]]
         k["bpt"] = dict(launches=bpt["launches"][k["name"]],
                         **bpt_kernels[k["name"]])
+        k["scene_shard"] = dict(launches=scene_shard["launches"][k["name"]],
+                                **scene_shard["kernels"][k["name"]])
     # The instance transform: on the main paths it runs as a device function
     # of the two kernels above, whose counted transforms show it; launched
     # on its own (never by a cast) it is held against its plain version.
@@ -2371,10 +3016,11 @@ def main() -> None:
         library_ms=None, **g_timings["xform_rays"]))
     if not all(k["launches_by_path"][p] > 0 for k in kernels[:2]
                for p in ("cornell", "grass", "cli", "env", "pt", "pt_golden",
-                         "grad")) \
+                         "grad", "dist", "scene_shard")) \
             or not all(kernels[0]["launches_by_path"][p] > 0
                        for p in ("shading", "debug", "bpt", "bpt_cornell",
-                                 "bpt_cli", "ppm", "ppm_cli")) \
+                                 "bpt_cli", "ppm", "ppm_cli",
+                                 "scene_shard_cli", "oracles")) \
             or not all(kernels[1]["launches_by_path"][p] > 0
                        for p in ("bpt", "bpt_cornell", "bpt_cli")):
         raise AssertionError("a kernel of the main paths was never launched")
@@ -2386,4 +3032,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--worker"]:
+        worker(sys.argv[2:])
+    else:
+        main()

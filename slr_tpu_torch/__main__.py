@@ -18,7 +18,16 @@ and distance instead (gnormal, snormal, stangent, distance), normals and
 tangents encoded as 0.5 n + 0.5 and distance over its largest value.
 Without `--renderer` the scene file's method decides. Runs on the CUDA
 device, or raises without one; `--cpu` runs the plain PyTorch versions on
-the host. Scene sharding is not ported yet.
+the host.
+
+Under torchrun (`torchrun --nproc_per_node N -m slr_tpu_torch ...`) the
+ranks join one process group (NCCL on CUDA, gloo with `--cpu`) and `pt`
+renders across them through `render_wavefront_sharded`; `--scene-shard`
+renders `pt` with the scene's chunk tables, shading rows and image atlas
+split by range over the ranks (`render_pt_scene_sharded`, the fixed-depth
+tracer at depth min(--max-depth, 16)), at any world size, one included.
+`bpt`, `debug`, `sppm` and `amcmcppm` run on rank 0 alone while the others
+wait. Only rank 0 writes exports and checkpoints.
 """
 from __future__ import annotations
 
@@ -54,7 +63,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the kernels' plain versions)")
     ap.add_argument("--scene-shard", action="store_true",
-                    help="partition the scene across devices (not ported)")
+                    help="pt only: split the scene's chunk tables, shading "
+                    "rows and images by range over the ranks (fixed-depth "
+                    "tracer, depth <= 16)")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the first pass to DIR")
     ap.add_argument("-v", "--verbose", action="store_true",
@@ -72,66 +83,133 @@ def main(argv: list[str] | None = None) -> dict:
     """Run the CLI on `argv` (default: the process's arguments). Returns
     what it did: load seconds, and per pass (spp, seconds, iterations); for
     `bpt` a pass's third item is its `bpt_batch` calls, base and deep, and
-    `deep_passes` counts the deep ones."""
+    `deep_passes` counts the deep ones; under `--scene-shard` its render
+    batches. Under torchrun, joins the process group first (and leaves it
+    at the end); a rank that only waited returns its rank and world."""
+    from .parallel.distributed import init_distributed, shutdown
+
     args = _parser().parse_args(argv)
     if args.verbose:
         logging.basicConfig(level=logging.INFO, format="%(message)s")
         logging.getLogger("slr_tpu_torch").setLevel(logging.INFO)
-    if args.scene_shard:
-        raise NotImplementedError(
-            "--scene-shard is not ported to slr_tpu_torch yet (ROADMAP A16)")
+    joined = init_distributed(device="cpu" if args.cpu else None)
+    try:
+        return _main(args)
+    finally:
+        if joined:
+            shutdown()
 
-    import numpy as np
 
-    from .core.device import resolve_device
-    from .render import bpt
-    from .render.film import develop, kahan_add, save_bmp, save_png
-    from .render.wavefront import DEFAULT_LANE_CAP, render_wavefront
+def _main(args) -> dict:
+    from .parallel.mesh import make_mesh
+    from .render.film import save_bmp, save_png
     from .scene.api import load_scene
-    from .utils.checkpoint import load_checkpoint, save_checkpoint
-    from .utils.metrics import RenderMeter, profile_trace
 
-    device = resolve_device("cpu" if args.cpu else None)
+    mesh = make_mesh("cpu" if args.cpu else None)
+    device = mesh.device
+    rank0 = mesh.rank == 0
     ext = args.format
     save_img = save_bmp if args.format == "bmp" else save_png
 
     t0 = time.perf_counter()
-    scene, renderer_cfg, settings = load_scene(args.scene,
-                                               spectral=args.spectral,
-                                               device=device)
+    # A sharded scene is loaded on the host: each rank moves only its
+    # ranges onto its device.
+    scene, renderer_cfg, settings = load_scene(
+        args.scene, spectral=args.spectral,
+        device="cpu" if args.scene_shard else device)
     load_s = time.perf_counter() - t0
-    print(f"scene loaded: {scene.geometry.num_tris} tris, "
-          f"{scene.materials.num} materials, {scene.lights.num} lights, "
-          f"{scene.pallas_tris.n_chunks} chunks ({load_s:.2f}s)")
+    if rank0:
+        print(f"scene loaded: {scene.geometry.num_tris} tris, "
+              f"{scene.materials.num} materials, {scene.lights.num} lights, "
+              f"{scene.pallas_tris.n_chunks} chunks ({load_s:.2f}s)")
 
     width = args.width or settings["width"]
     height = args.height or settings["height"]
     brightness = settings["brightness"]
     method = (args.renderer or renderer_cfg.get("method", "PT")).lower()
-    if method == "debug":
-        os.makedirs(args.out, exist_ok=True)
-        return _write_aovs(scene, width, height, args.out, ext, save_img,
-                           device, load_s)
     if method not in _RENDERERS:
         raise ValueError(f"the scene's renderer {method!r} is none of "
                          f"{_RENDERERS}")
+    if args.scene_shard and method != "pt":
+        raise ValueError(f"--scene-shard renders the pt renderer, not "
+                         f"{method}")
     spp = args.spp or int(renderer_cfg.get("samples", 16))
     rng_seed = int(settings.get("rngSeed", 0)) & 0xFFFFFFFF
-    os.makedirs(args.out, exist_ok=True)
-    if method in ("sppm", "amcmcppm"):
-        return _render_ppm(scene, method, width, height, spp, rng_seed, args,
-                           save_img, brightness, device, load_s)
+    if method != "pt":
+        # One device renders these, as in the reference; the other ranks
+        # wait for rank 0.
+        if not rank0:
+            mesh.barrier()
+            return dict(rank=mesh.rank, world=mesh.size, waited=method)
+        os.makedirs(args.out, exist_ok=True)
+        if method == "debug":
+            result = _write_aovs(scene, width, height, args.out, ext,
+                                 save_img, device, load_s)
+        elif method in ("sppm", "amcmcppm"):
+            result = _render_ppm(scene, method, width, height, spp,
+                                 rng_seed, args, save_img, brightness,
+                                 device, load_s)
+        else:
+            result = _render_passes(args, scene, method, width, height, spp,
+                                    rng_seed, save_img, brightness, mesh,
+                                    load_s)
+        mesh.barrier()
+        return result
+    if rank0:
+        os.makedirs(args.out, exist_ok=True)
+    return _render_passes(args, scene, method, width, height, spp, rng_seed,
+                          save_img, brightness, mesh, load_s)
+
+
+def _render_passes(args, scene, method, width, height, spp, rng_seed,
+                   save_img, brightness, mesh, load_s) -> dict:
+    """`pt` and `bpt`: progressive power-of-two passes, an export and a
+    checkpoint after each (rank 0 writes them)."""
+    import numpy as np
+
+    from .accel import traverse as tv
+    from .parallel import mesh as pmesh
+    from .render import bpt
+    from .render import pt as fixed
+    from .render.film import develop, kahan_add
+    from .render.wavefront import DEFAULT_LANE_CAP, render_wavefront
+    from .utils.checkpoint import load_checkpoint, save_checkpoint
+    from .utils.metrics import RenderMeter, profile_trace
+
+    device = mesh.device
+    rank0 = mesh.rank == 0
+    ext = args.format
+    target = scene
+    shard_depth = min(args.max_depth, 16)
+    n_batches = -(-width * height // min(width * height, 65536))
+    if args.scene_shard:
+        from .parallel.scene_shard import render_pt_scene_sharded, shard_scene
+
+        # Instanced scenes do not shard by range and render replicated.
+        target = (shard_scene(scene, mesh) if scene.instances is None
+                  else scene.to(device))
 
     def render_pass(step: int, offset: int):
-        """(image on the host, iterations or bpt_batch calls)."""
+        """(image on the host, iterations, bpt_batch calls or render
+        batches)."""
+        if args.scene_shard:
+            img = render_pt_scene_sharded(
+                target, mesh, width, height, spp=step, seed=rng_seed,
+                sample_offset=offset, max_depth=shard_depth)
+            return img.cpu().numpy(), step * n_batches
         if method == "bpt":
             before = dict(bpt.TIERS)
             img = bpt.render_bpt(scene, width, height, spp=step,
                                  seed=rng_seed, sample_offset=offset,
                                  device=device)
-            n_batches = -(-width * height // min(width * height, 65536))
             deep = bpt.TIERS["deep_passes"] - before["deep_passes"]
             return img.cpu().numpy(), step * n_batches + deep
+        if mesh.size > 1:
+            img, iters = pmesh.render_wavefront_sharded(
+                scene, width, height, spp=step, mesh=mesh, seed=rng_seed,
+                max_depth=args.max_depth, sample_offset=offset,
+                return_iters=True)
+            return img.cpu().numpy(), iters
         img, iters = render_wavefront(
             scene, width, height, spp=step, seed=rng_seed,
             max_depth=args.max_depth, sample_offset=offset,
@@ -147,22 +225,27 @@ def main(argv: list[str] | None = None) -> dict:
             accum = np.asarray(state["accum"])
             comp = np.asarray(state.get("comp", np.zeros_like(accum)))
             done = int(state["done"])
-            print(f"resumed at {done} samples")
+            if rank0:
+                print(f"resumed at {done} samples")
     img_idx = 0
     next_export = 1
     while next_export <= done:
         img_idx += 1
         next_export *= 2
 
-    meter = RenderMeter(width, height, args.max_depth, has_env=scene.has_env)
+    meter = RenderMeter(width, height,
+                        shard_depth if args.scene_shard else args.max_depth,
+                        has_env=scene.has_env)
     passes = []
     bpt.reset_tiers()
+    counts0 = (dict(tv.LAUNCHES), dict(fixed.ALPHA_RECASTS),
+               dict(pmesh.COLLECTIVES))
     t0 = time.perf_counter()
     while done < spp:
         step = min(next_export, spp) - done
         before = meter.seconds
         meter.start()
-        with profile_trace(args.profile if not passes else None):
+        with profile_trace(args.profile if not passes and rank0 else None):
             img, iters = render_pass(step, done)
         meter.stop(step)
         passes.append((step, meter.seconds - before, iters))
@@ -178,17 +261,36 @@ def main(argv: list[str] | None = None) -> dict:
         accum, comp = kahan_add(accum, comp, img * step)
         done += step
         out = os.path.join(args.out, f"{img_idx:03d}.{ext}")
-        save_img(out, develop((accum + comp) / done, brightness,
-                              device="cpu"))
-        save_checkpoint(ckpt_path, {"accum": accum, "comp": comp,
-                                    "done": done})
-        print(f"{done} samples: {out}, {time.perf_counter() - t0:.1f}s "
-              f"[{meter.mrays_per_s:.2f} Mrays/s]"
-              + (f", {iters} {'batches' if method == 'bpt' else 'iterations'}"
-                 if args.verbose else ""))
+        if rank0:
+            save_img(out, develop((accum + comp) / done, brightness,
+                                  device="cpu"))
+            save_checkpoint(ckpt_path, {"accum": accum, "comp": comp,
+                                        "done": done})
+            unit = ("batches" if method == "bpt" or args.scene_shard
+                    else "iterations")
+            print(f"{done} samples: {out}, {time.perf_counter() - t0:.1f}s "
+                  f"[{meter.mrays_per_s:.2f} Mrays/s]"
+                  + (f", {iters} {unit}" if args.verbose else ""))
         img_idx += 1
         next_export *= 2
+    counts = dict(
+        launches={k: v - counts0[0][k] for k, v in tv.LAUNCHES.items()},
+        alpha_recasts=fixed.ALPHA_RECASTS["casts"] - counts0[1]["casts"],
+        collectives=pmesh.COLLECTIVES["calls"] - counts0[2]["calls"],
+        collective_bytes=pmesh.COLLECTIVES["bytes"] - counts0[2]["bytes"])
+    if not rank0:
+        return dict(rank=mesh.rank, world=mesh.size, spp=done,
+                    passes=passes, **counts)
     print(meter.report())
+    if args.verbose and (mesh.size > 1 or args.scene_shard):
+        import torch
+
+        peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                if device.type == "cuda" else float("nan"))
+        print(f"rank 0 of {mesh.size}: kernel launches {counts['launches']}"
+              f", alpha recasts {counts['alpha_recasts']}, collectives "
+              f"{counts['collectives']} ({counts['collective_bytes']} B), "
+              f"peak {peak:.3f} GiB")
     lanes = min(width * height, DEFAULT_LANE_CAP)
     if method == "bpt":
         if args.verbose and passes:
@@ -202,8 +304,15 @@ def main(argv: list[str] | None = None) -> dict:
                   f" lanes")
         return dict(load_seconds=load_s, width=width, height=height, spp=done,
                     passes=passes, deep_passes=bpt.TIERS["deep_passes"],
-                    tiers=dict(bpt.TIERS))
-    if args.verbose and passes:
+                    tiers=dict(bpt.TIERS), world=mesh.size, **counts)
+    if args.verbose and passes and args.scene_shard:
+        secs = sum(p[1] for p in passes)
+        n = sum(p[0] for p in passes)
+        print(f"{n} spp in {len(passes)} passes: {secs:.3f} s, "
+              f"{sum(p[2] for p in passes)} render batches of depth "
+              f"{shard_depth}, {width * height * n / secs / 1e3:.1f} "
+              f"ksamples/s")
+    elif args.verbose and passes:
         # What the passes did, as against the meter's nominal casts: one
         # closest-hit and one shadow cast per lane per iteration.
         secs = sum(p[1] for p in passes)
@@ -214,7 +323,7 @@ def main(argv: list[str] | None = None) -> dict:
               f" ksamples/s, {2 * lanes * iters / secs / 1e6:.3f} Mrays/s "
               f"cast (2 x {lanes} lanes x iterations)")
     return dict(load_seconds=load_s, width=width, height=height, spp=done,
-                lanes=lanes, passes=passes)
+                lanes=lanes, passes=passes, world=mesh.size, **counts)
 
 
 def _render_ppm(scene, method, width, height, waves, rng_seed, args,

@@ -224,3 +224,10 @@ def sample_triangle_point(geom: Geometry, tri: Tensor, u0: Tensor,
     return _finish_surface_point(p, r.gn, r.n0, r.n1, r.n2, r.t0, r.t1, r.t2,
                                  r.uv0, r.uv1, r.uv2, r.mat_id, r.inv_area,
                                  b0, b1)
+
+
+def any_hit_brute(geom: Geometry, o: Tensor, d: Tensor, tmin, tmax,
+                  block: int = 512) -> Tensor:
+    """Shadow-ray occlusion over every triangle: (R,) bool, True where a
+    triangle lies in [tmin, tmax] (an oracle for the any-hit cast)."""
+    return intersect_brute(geom, o, d, tmin, tmax, block).mask

@@ -1,4 +1,5 @@
-"""BVH builds on the host (counterpart of slr_tpu/accel/lbvh.py).
+"""BVH builds on the host, and a lock-step stack traversal of the BVH
+(counterpart of slr_tpu/accel/lbvh.py).
 
 `build_bvh` makes the scene's BVH: by default the SBVH of the native
 builder (`native/sbvh.cc`), else the Morton-presorted median-split LBVH of
@@ -9,6 +10,10 @@ the letter.
 
 Leaf encoding: child pointer < 0 means leaf `-(ptr) - 1`, an index into
 `prim_order`.
+
+`intersect_bvh` walks the tree for every ray at once (one stack per ray,
+one node per ray and step): the reference's oracle for the chunk
+traversal, with no kernel of its own.
 """
 from __future__ import annotations
 
@@ -152,3 +157,93 @@ def build_bvh_boxes_np(
     s_max = np.asarray(bmax, np.float32).copy()
     return _median_split(s_min, s_max, 0.5 * (s_min + s_max),
                          np.arange(n, dtype=np.int32))
+
+
+def _slab_test(bmin, bmax, o, inv_d, tmin, tmax):
+    """AABB slab test of (R, 3) boxes: (hit, near distance)."""
+    t0 = (bmin - o) * inv_d
+    t1 = (bmax - o) * inv_d
+    tnear = torch.minimum(t0, t1).amax(-1)
+    tfar = torch.maximum(t0, t1).amin(-1)
+    return (tnear <= tfar) & (tfar >= tmin) & (tnear <= tmax), tnear
+
+
+def _push(stack, sp, value, mask):
+    """Push `value` on the stacks of the rays in `mask`."""
+    idx = torch.clamp(sp, max=MAX_STACK - 1)
+    pushed = stack.scatter(1, idx[:, None], value[:, None].to(stack.dtype))
+    stack = torch.where(mask[:, None], pushed, stack)
+    return stack, torch.where(mask, torch.clamp(sp + 1, max=MAX_STACK), sp)
+
+
+def intersect_bvh(geom, bvh: BVH, o: torch.Tensor, d: torch.Tensor,
+                  tmin=1e-4, tmax=float("inf")):
+    """Closest hit by a lock-step stack traversal of `bvh`; o, d (R, 3).
+    Children are visited near first; a leaf child's box is its triangle's
+    bounds. Returns an accel/intersect.py `Hit`."""
+    from .intersect import Hit, moller_trumbore
+
+    r = o.shape[0]
+    dev = o.device
+    tmin = torch.broadcast_to(torch.as_tensor(tmin, dtype=torch.float32,
+                                              device=dev), (r,))
+    best_t = torch.broadcast_to(torch.as_tensor(
+        tmax, dtype=torch.float32, device=dev), (r,)).clone()
+    inv_d = 1.0 / torch.where(d.abs() < 1e-20,
+                              torch.where(d >= 0, 1e-20, -1e-20), d)
+    sorted_tri = bvh.prim_order.to(torch.int64)
+    vidx = geom.tri_vidx.to(torch.int64)
+    v0, v1, v2 = (geom.positions[vidx[:, k]] for k in range(3))
+    left_of = bvh.node_left.to(torch.int64)
+    right_of = bvh.node_right.to(torch.int64)
+
+    stack = torch.zeros((r, MAX_STACK), dtype=torch.int64, device=dev)
+    sp = torch.ones((r,), dtype=torch.int64, device=dev)  # root pushed
+    best_tri = torch.full((r,), -1, dtype=torch.int64, device=dev)
+    best_b1 = torch.zeros((r,), device=dev)
+    best_b2 = torch.zeros((r,), device=dev)
+
+    def child_box(c):
+        leaf_tri = sorted_tri[torch.clamp(-c - 1, min=0)]
+        tp = torch.stack([v0[leaf_tri], v1[leaf_tri], v2[leaf_tri]], dim=1)
+        node = torch.clamp(c, min=0)
+        leaf = (c < 0)[:, None]
+        return (torch.where(leaf, tp.amin(1), bvh.node_min[node]),
+                torch.where(leaf, tp.amax(1), bvh.node_max[node]))
+
+    while bool((sp > 0).any()):
+        active = sp > 0
+        top = torch.clamp(sp - 1, min=0)[:, None]
+        entry = torch.gather(stack, 1, top)[:, 0]
+        sp = torch.where(active, sp - 1, sp)
+
+        is_leaf = entry < 0
+        tri = sorted_tri[torch.clamp(-entry - 1, min=0)]
+        t, b1, b2, hit = moller_trumbore(o, d, v0[tri], v1[tri], v2[tri],
+                                         tmin, best_t)
+        take = active & is_leaf & hit & (t < best_t)
+        best_t = torch.where(take, t, best_t)
+        best_tri = torch.where(take, tri, best_tri)
+        best_b1 = torch.where(take, b1, best_b1)
+        best_b2 = torch.where(take, b2, best_b2)
+
+        node = torch.clamp(entry, min=0)
+        left, right = left_of[node], right_of[node]
+        lmin, lmax = child_box(left)
+        rmin, rmax = child_box(right)
+        lhit, lnear = _slab_test(lmin, lmax, o, inv_d, tmin, best_t)
+        rhit, rnear = _slab_test(rmin, rmax, o, inv_d, tmin, best_t)
+        interior = active & ~is_leaf
+        lhit = interior & lhit
+        rhit = interior & rhit
+        near_left = lnear <= rnear
+        first = torch.where(near_left, left, right)
+        second = torch.where(near_left, right, left)
+        # Far first, so that the near child pops first.
+        stack, sp = _push(stack, sp, second,
+                          torch.where(near_left, rhit, lhit))
+        stack, sp = _push(stack, sp, first,
+                          torch.where(near_left, lhit, rhit))
+    mask = best_tri >= 0
+    return Hit(t=torch.where(mask, best_t, float("inf")), tri=best_tri,
+               b0=1.0 - best_b1 - best_b2, b1=best_b1, mask=mask)

@@ -120,18 +120,28 @@ def scene_intersect_alpha(scene: FlatScene, o: Tensor, d: Tensor,
     hit = scene_intersect(scene, o, d, tmin, tmax, f, active=active)
     if not scene.has_alpha:
         return hit
+    return recast_alpha(
+        hit, tmin, lambda h: _alpha_zero(scene, h),
+        lambda tmin_b, cut: scene_intersect(scene, o, d, tmin_b, tmax, f,
+                                            active=cut))
+
+
+def recast_alpha(hit: Hit, tmin, alpha_zero, recast) -> Hit:
+    """The alpha recast loop: while some hit is on a cut-out texel
+    (`alpha_zero(hit)`), cast those rays again (`recast(per-ray tmin, cut
+    rays)`) from just beyond the cast's own t, and take the new hits."""
     tmin_b = torch.broadcast_to(
-        torch.as_tensor(tmin, dtype=torch.float32, device=o.device),
+        torch.as_tensor(tmin, dtype=torch.float32, device=hit.t.device),
         hit.t.shape)
     while True:
-        cut = _alpha_zero(scene, hit)
+        cut = alpha_zero(hit)
         n_cut = int(cut.sum())
         if n_cut == 0:
             return hit
         ALPHA_RECASTS["casts"] += 1
         ALPHA_RECASTS["rays"] += n_cut
         tmin_b = torch.where(cut, hit.t_cast + RAY_EPSILON, tmin_b)
-        rehit = scene_intersect(scene, o, d, tmin_b, tmax, f, active=cut)
+        rehit = recast(tmin_b, cut)
         hit = Hit(*(None if h is None else torch.where(cut, r, h)
                     for h, r in zip(hit, rehit)))
 
@@ -584,11 +594,14 @@ def _bounce(scene: FlatScene, b: int, state: PathState, sp, lanes: _Lanes,
 
 def render(scene: FlatScene, width: int, height: int, spp: int,
            seed: int = 0, max_depth: int = 16, ray_batch: int | None = None,
-           sample_offset: int = 0, device=None) -> Tensor:
+           sample_offset: int = 0, device=None, cast_fns=None,
+           resolve_fn=None) -> Tensor:
     """Render `spp` samples per pixel in passes of `ray_batch` lanes
     (default min(pixels, 65536)). Returns the (H, W, S) mean linear
     radiance on `device` (default: the CUDA device), S = 3 (a spectral
-    scene's strata are converted to linear sRGB).
+    scene's strata are converted to linear sRGB). `cast_fns` and
+    `resolve_fn` replace the casts and the surface-point resolution (see
+    `trace_radiance_spectral`).
 
     Sample streams are keyed by (seed, sample_offset + i), so a render split
     into passes by `sample_offset` equals one render of all the samples bit
@@ -609,7 +622,8 @@ def render(scene: FlatScene, width: int, height: int, spp: int,
         for b in range(n_batches):
             pixel_id = torch.arange(b * batch, (b + 1) * batch, device=dev)
             out = render_batch(scene, pixel_id, sample_id, seed, width,
-                               height, max_depth)
+                               height, max_depth, cast_fns=cast_fns,
+                               resolve_fn=resolve_fn)
             acc[b] = out if acc[b] is None else acc[b] + out
     film = (torch.cat(acc)[:n_pix] / spp).reshape(height, width, s_film)
     if spectral:
@@ -618,7 +632,8 @@ def render(scene: FlatScene, width: int, height: int, spp: int,
 
 
 def render_batch(scene: FlatScene, pixel_id: Tensor, sample_id: Tensor,
-                 seed, width: int, height: int, max_depth: int) -> Tensor:
+                 seed, width: int, height: int, max_depth: int,
+                 cast_fns=None, resolve_fn=None) -> Tensor:
     """One sample pass over one lane batch -> the per-pixel film
     contributions ((B, 3) RGB or (B, 16) spectral strata). Pixel ids past
     the image repeat its last pixel; the caller drops them."""
@@ -632,7 +647,8 @@ def render_batch(scene: FlatScene, pixel_id: Tensor, sample_id: Tensor,
     pid_c = torch.clamp(pixel_id.to(torch.int64), max=width * height - 1)
     rays = _camera_ray(scene, pid_c, sample_id, seed, width, height)
     c, lambdas = _trace_core(scene, rays.o, rays.d, pid_c, sample_id, seed,
-                             max_depth, sort_rays=True)
+                             max_depth, sort_rays=True, cast_fns=cast_fns,
+                             resolve_fn=resolve_fn)
     weight = rays.weight[:, None] * c
     if scene.stex.spectral:
         # The wavelength selection pdf, then the sensor's strata.

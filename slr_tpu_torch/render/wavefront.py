@@ -126,9 +126,16 @@ def _pick(cond: Tensor, a: Tensor, b: Tensor) -> Tensor:
 def _run_wavefront(scene: FlatScene, n_pix: int, spp_end: int, seed: int,
                    width: int, height: int, sample_offset: int,
                    max_depth: int, n_lanes: int | None = None,
-                   sort_rays: bool = True) -> tuple[Tensor, int]:
+                   sort_rays: bool = True, work_lo: int = 0,
+                   work_hi: int | None = None) -> tuple[Tensor, int]:
     """Trace work items [0, (spp_end - sample_offset) * n_pix). Returns
-    (film (n_pix, S_film), iterations)."""
+    (film (n_pix, S_film), iterations).
+
+    `work_lo` / `work_hi` restrict the queue to the items [work_lo,
+    min(work_hi, total)): the ranged form, in which each rank drains its
+    own contiguous slice of the work space with its own lanes and film
+    (parallel/mesh.py `render_wavefront_sharded`). Each item's estimate is
+    the same whichever range traces it."""
     from ..spectrum.spectral import NUM_SPECTRAL_SAMPLES, NUM_STRATA
 
     dev = scene.device
@@ -139,8 +146,10 @@ def _run_wavefront(scene: FlatScene, n_pix: int, spp_end: int, seed: int,
     total = (spp_end - sample_offset) * n_pix
     if total >= 2 ** 32:
         raise ValueError("the work queue counts in 32 bits")
+    if work_hi is not None:
+        total = min(work_hi, total)
 
-    work0 = torch.arange(r, dtype=torch.int64, device=dev)
+    work0 = work_lo + torch.arange(r, dtype=torch.int64, device=dev)
     pid0, sid0 = _work_pixel_sample(work0, n_pix, sample_offset)
     rays, hero, lambdas, f_time = _fresh_sample(scene, pid0, sid0, seed,
                                                 width, height, s, spectral)
@@ -155,7 +164,7 @@ def _run_wavefront(scene: FlatScene, n_pix: int, spp_end: int, seed: int,
         prev_delta=false_, last=false_,
         rr_scale=torch.ones((r,), device=dev), init_y=importance(ones, hero),
         f_time=f_time)
-    counter = torch.tensor(r, dtype=torch.int64, device=dev)
+    counter = torch.tensor(work_lo + r, dtype=torch.int64, device=dev)
     film = torch.zeros((n_pix + 1, s_film), dtype=torch.float32, device=dev)
     n_iters = 0
 

@@ -6,8 +6,9 @@ dataclasses (flax struct nodes) or NamedTuples — and builds the port's
 tables from them: each array leaf becomes a tensor via numpy, static fields
 are copied. An instanced scene comes across whole: the extended chunk
 table (`entry_inst`, `inst_trs`; the port derives `tri24`, `n_valid`,
-`cast_boxes` and the `instanced` flag), the `Instances` rows (not the reference's TLAS / BLAS
-node arena, which the port has no fields for) and `n_static`.
+`cast_boxes` and the `instanced` flag), the `Instances` rows (the
+reference's TLAS / BLAS node arena comes across with `cls=TwoLevel`, for
+the two-level oracle) and `n_static`.
 It imports nothing of the reference package or of JAX; any object with the
 same field names works.
 """
@@ -82,7 +83,10 @@ def _convert(src, cls, device):
     return cls(**kwargs)
 
 
-def from_reference(flat_scene, device="cpu") -> T.FlatScene:
+def from_reference(flat_scene, device="cpu", cls=None):
     """The reference `FlatScene` (or any nested dataclass / NamedTuple of
-    arrays with the same field names) as the port's FlatScene on `device`."""
-    return _convert(flat_scene, T.FlatScene, torch.device(device))
+    arrays with the same field names) as the port's FlatScene on `device`;
+    with `cls`, any one reference table as that port table (e.g. the
+    reference's `Instances` with its node arena as accel/instances.py
+    `TwoLevel`)."""
+    return _convert(flat_scene, cls or T.FlatScene, torch.device(device))

@@ -456,7 +456,12 @@ class SceneBuilder:
     # -- build --------------------------------------------------------------
     def build(self, use_bvh: bool = True,
               flatten_static_instances: bool = True,
-              flatten_budget: int = 4_000_000) -> FlatScene:
+              flatten_budget: int = 4_000_000,
+              two_level: bool = False) -> FlatScene:
+        """The scene's tables. `two_level` gives an instanced scene's
+        `instances` the TLAS / BLAS node arena as well
+        (accel/instances.py `TwoLevel`), which only the two-level oracle
+        `accel/twolevel.py` `intersect_instances` reads."""
         from ..accel.intersect import build_tri_table
         from ..accel.traverse import (
             build_pallas_tris,
@@ -727,10 +732,10 @@ class SceneBuilder:
 
         instances = None
         if inst_rows:
-            from ..accel.instances import build_instances
+            from ..accel.instances import build_instances, build_two_level
 
-            instances = build_instances(positions, tri_vidx, blas_ranges,
-                                        inst_rows)
+            instances = (build_two_level if two_level else build_instances)(
+                positions, tri_vidx, blas_ranges, inst_rows)
 
         # World bounding sphere: the static geometry (without the never-hit
         # triangle at 1e30) plus the instances' motion bounds.

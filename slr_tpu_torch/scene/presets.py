@@ -225,7 +225,7 @@ def _grass_blade(n_seg: int = 5, height: float = 0.35, width: float = 0.02):
 
 def grass_field(n_side: int = 64, blade_segments: int = 5, seed: int = 7,
                 animated_fraction: float = 0.0, use_bvh: bool = True,
-                device=None) -> FlatScene:
+                device=None, two_level: bool = False) -> FlatScene:
     """RTC3-class instanced scene as a FlatScene on `device` (default: the
     CUDA device): n_side^2 instances of one grass-blade BLAS (2 *
     blade_segments triangles) over a ground quad under an area 'sun', the
@@ -235,7 +235,8 @@ def grass_field(n_side: int = 64, blade_segments: int = 5, seed: int = 7,
     from numpy's RandomState(seed), draw for draw as the reference makes
     them, so both packages place the same blades. The static chunks are
     SBVH treelets, as the reference builds them, or Morton slices
-    (`use_bvh=False`)."""
+    (`use_bvh=False`). `two_level` adds the TLAS / BLAS node arena to its
+    instances, for the two-level oracle."""
     dev = resolve_device(device)
     rs = np.random.RandomState(seed)
     b = SceneBuilder()
@@ -288,4 +289,4 @@ def grass_field(n_side: int = 64, blade_segments: int = 5, seed: int = 7,
            @ m3.mat_rotate_y(np.pi).numpy()
            @ m3.mat_rotate_x(0.35).numpy()).astype(np.float32)
     b.set_camera_perspective(cam, 4.0 / 3.0, 0.9)
-    return b.build(use_bvh=use_bvh).to(dev)
+    return b.build(use_bvh=use_bvh, two_level=two_level).to(dev)

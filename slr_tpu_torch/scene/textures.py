@@ -41,9 +41,15 @@ def texel_coords(image_hw: Tensor, image_id: Tensor, u: Tensor, v: Tensor,
     return iid, py, px
 
 
-def _image_fetch(images: Tensor, image_hw: Tensor, image_id: Tensor,
+def _image_fetch(images, image_hw: Tensor, image_id: Tensor,
                  u: Tensor, v: Tensor) -> Tensor:
-    """Nearest-neighbour RGBA texels (R, 4) from the atlas."""
+    """Nearest-neighbour RGBA texels (R, 4) from the atlas. The atlas says
+    how its texels are fetched: a tensor (NI, Hmax, Wmax, 4) is indexed
+    here; any other atlas (a range-sharded one, parallel/scene_shard.py
+    `ShardedAtlas`) has a `shape` and a `fetch(image_hw, image_id, u, v)`
+    method, which is called instead."""
+    if not isinstance(images, Tensor):
+        return images.fetch(image_hw, image_id, u, v)
     if images.shape[0] == 0:
         return torch.zeros(u.shape + (4,), dtype=torch.float32,
                            device=u.device)

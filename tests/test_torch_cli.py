@@ -126,10 +126,14 @@ def test_refuses_cpu_fallback(tmp_path):
 
 
 @pytest.mark.parametrize("extra, item", [
-    pytest.param(["--scene-shard"], "A16", id="extra4-A16")])
+    pytest.param(["--scene-shard", "--renderer", "bpt"], "pt",
+                 id="extra4-A16")])
 def test_unported_renderers_raise(tmp_path, extra, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """Every renderer is ported; scene sharding renders pt only, and asked
+    for another renderer it raises before writing anything."""
+    with pytest.raises(ValueError, match=item):
         main([SCENE, "--cpu", "--out", str(tmp_path)] + extra)
+    assert not os.listdir(tmp_path)
 
 
 SMALL = [SCENE, "--cpu", "--width", "16", "--height", "12", "--format",
@@ -243,3 +247,73 @@ def test_kahan_film_matches_reference():
         plain += p
     exact = np.sum(np.asarray(passes, np.float64), axis=0)
     assert np.abs(total + comp - exact).max() <= np.abs(plain - exact).max()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ranks(n, argv_of_rank, timeout=300):
+    """Run the CLI as torchrun would: n processes with RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR and MASTER_PORT; returns their outputs."""
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port = _free_port()
+    procs = []
+    for r in range(n):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n),
+                   LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+                   PYTHONPATH=root)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "slr_tpu_torch"] + argv_of_rank(r),
+            env=env, cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}:\n{out[-3000:]}"
+    return outs
+
+
+@pytest.mark.parametrize("extra", [[], ["--scene-shard"],
+                                   ["--renderer", "bpt"]],
+                         ids=["pt", "scene-shard", "bpt"])
+def test_two_gloo_ranks_write_one_set_of_exports(tmp_path, extra):
+    """`python -m slr_tpu_torch` on two CPU ranks (gloo), each given its
+    own --out and --profile: rank 0 writes the exports, the checkpoint and
+    the trace and reports the meter, rank 1 nothing, and they are world
+    1's (pt: the ranks' films summed in another order; --scene-shard and
+    bpt, which rank 0 renders alone: bit for bit)."""
+    args = SMALL + ["--spp", "2"] + extra
+    outs = _ranks(2, lambda r: args + [
+        "--out", str(tmp_path / f"r{r}"), "-v",
+        "--profile", str(tmp_path / f"trace{r}")])
+    one = tmp_path / "one"
+    main(args + ["--out", str(one)])
+    names = ["000.bmp", "001.bmp", "checkpoint.npz"]
+    assert sorted(os.listdir(tmp_path / "r0")) == sorted(os.listdir(one)) \
+        == names
+    assert not (tmp_path / "r1").exists()
+    assert "samples" in outs[0] and "samples" not in outs[1]
+    # The meter's report and the first pass's trace: rank 0 only.
+    assert "Mrays/s" in outs[0] and "Mrays/s" not in outs[1]
+    assert os.path.getsize(tmp_path / "trace0" / "trace.json") > 0
+    assert not (tmp_path / "trace1").exists()
+    with np.load(tmp_path / "r0" / "checkpoint.npz") as x, \
+            np.load(one / "checkpoint.npz") as y:
+        assert int(x["done"]) == int(y["done"]) == 2
+        if extra:
+            np.testing.assert_array_equal(x["accum"], y["accum"])
+        else:
+            np.testing.assert_allclose(x["accum"], y["accum"], rtol=2e-4,
+                                       atol=1e-5)
+    for name in names[:2]:
+        a = np.frombuffer((tmp_path / "r0" / name).read_bytes(), np.uint8)
+        b = np.frombuffer((one / name).read_bytes(), np.uint8)
+        assert a.shape == b.shape
+        assert np.abs(a.astype(int) - b).max() <= (0 if extra else 1)

@@ -35,7 +35,10 @@ sys.meta_path.insert(0, Refuse())
 import slr_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(slr_tpu_torch.__path__,
                                                "slr_tpu_torch.")]
-assert {{"slr_tpu_torch.render.bpt", "slr_tpu_torch.render.ppm"}} <= set(names)
+assert {{"slr_tpu_torch.render.bpt", "slr_tpu_torch.render.ppm",
+         "slr_tpu_torch.parallel.distributed", "slr_tpu_torch.parallel.mesh",
+         "slr_tpu_torch.parallel.scene_shard", "slr_tpu_torch.accel.plucker",
+         "slr_tpu_torch.accel.twolevel"}} <= set(names)
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
@@ -77,3 +80,22 @@ def test_no_import_statement_names_jax_or_slr_tpu():
                       if n.split(".")[0] in FORBIDDEN]
     assert not found, found
     assert len(_port_files()) >= 35
+
+
+def test_sharded_paths_and_oracles_are_read():
+    """The modules of rendering across ranks and the oracles are among the
+    files whose imports are read, and the CPU ranks' worker and the test
+    helpers they load import no JAX either."""
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in ("distributed", "mesh", "scene_shard"):
+        assert os.path.join("slr_tpu_torch", "parallel", name + ".py") in files
+    for name in ("plucker", "twolevel", "instances", "lbvh"):
+        assert os.path.join("slr_tpu_torch", "accel", name + ".py") in files
+    for helper in ("torch_dist_worker.py", "torch_shard_scenes.py"):
+        with open(os.path.join(ROOT, "tests", helper)) as f:
+            tree = ast.parse(f.read())
+        mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names]
+        mods += [n.module or "" for n in ast.walk(tree)
+                 if isinstance(n, ast.ImportFrom) and n.level == 0]
+        assert not [m for m in mods if m.split(".")[0] in FORBIDDEN], helper
