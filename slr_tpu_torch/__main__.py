@@ -67,7 +67,9 @@ def _parser() -> argparse.ArgumentParser:
                     "rows and images by range over the ranks (fixed-depth "
                     "tracer, depth <= 16)")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="write a torch.profiler trace of the first pass to DIR")
+                    help="write a torch.profiler trace of the first pass, "
+                    "with the program's spans as a host track, to DIR "
+                    "(with -v also print the pass's spans by phase)")
     ap.add_argument("-v", "--verbose", action="store_true",
                     help="log build and render stats (SBVH, iterations, ...)")
     ap.add_argument("--check", action="store_true",
@@ -161,6 +163,13 @@ def _main(args) -> dict:
                           save_img, brightness, mesh, load_s)
 
 
+def _ksamples_per_s(passes, width: int, height: int) -> float:
+    """Thousands of pixel samples a second over the passes' own wall
+    time; a pass is (spp, seconds, ...)."""
+    secs = sum(p[1] for p in passes)
+    return width * height * sum(p[0] for p in passes) / max(secs, 1e-9) / 1e3
+
+
 def _render_passes(args, scene, method, width, height, spp, rng_seed,
                    save_img, brightness, mesh, load_s) -> dict:
     """`pt` and `bpt`: progressive power-of-two passes, an export and a
@@ -174,7 +183,7 @@ def _render_passes(args, scene, method, width, height, spp, rng_seed,
     from .render.film import develop, kahan_add
     from .render.wavefront import DEFAULT_LANE_CAP, render_wavefront
     from .utils.checkpoint import load_checkpoint, save_checkpoint
-    from .utils.metrics import RenderMeter, profile_trace
+    from .utils.metrics import phase_table, profile_trace
 
     device = mesh.device
     rank0 = mesh.rank == 0
@@ -233,9 +242,6 @@ def _render_passes(args, scene, method, width, height, spp, rng_seed,
         img_idx += 1
         next_export *= 2
 
-    meter = RenderMeter(width, height,
-                        shard_depth if args.scene_shard else args.max_depth,
-                        has_env=scene.has_env)
     passes = []
     bpt.reset_tiers()
     counts0 = (dict(tv.LAUNCHES), dict(fixed.ALPHA_RECASTS),
@@ -243,12 +249,13 @@ def _render_passes(args, scene, method, width, height, spp, rng_seed,
     t0 = time.perf_counter()
     while done < spp:
         step = min(next_export, spp) - done
-        before = meter.seconds
-        meter.start()
-        with profile_trace(args.profile if not passes and rank0 else None):
+        t_pass = time.perf_counter()
+        with profile_trace(args.profile if not passes and rank0
+                           else None) as phases:
             img, iters = render_pass(step, done)
-        meter.stop(step)
-        passes.append((step, meter.seconds - before, iters))
+        passes.append((step, time.perf_counter() - t_pass, iters))
+        if args.verbose and phases:
+            print(phase_table(phases))
         if args.check:
             bad = ~np.isfinite(img) | (img < 0.0)
             if bad.any():
@@ -269,7 +276,8 @@ def _render_passes(args, scene, method, width, height, spp, rng_seed,
             unit = ("batches" if method == "bpt" or args.scene_shard
                     else "iterations")
             print(f"{done} samples: {out}, {time.perf_counter() - t0:.1f}s "
-                  f"[{meter.mrays_per_s:.2f} Mrays/s]"
+                  f"[{_ksamples_per_s(passes, width, height):.4g} "
+                  f"ksamples/s]"
                   + (f", {iters} {unit}" if args.verbose else ""))
         img_idx += 1
         next_export *= 2
@@ -281,7 +289,9 @@ def _render_passes(args, scene, method, width, height, spp, rng_seed,
     if not rank0:
         return dict(rank=mesh.rank, world=mesh.size, spp=done,
                     passes=passes, **counts)
-    print(meter.report())
+    secs = sum(p[1] for p in passes)
+    print(f"{sum(p[0] for p in passes)} spp in {secs:.2f} s of passes: "
+          f"{_ksamples_per_s(passes, width, height):.4g} ksamples/s")
     if args.verbose and (mesh.size > 1 or args.scene_shard):
         import torch
 
@@ -294,11 +304,7 @@ def _render_passes(args, scene, method, width, height, spp, rng_seed,
     lanes = min(width * height, DEFAULT_LANE_CAP)
     if method == "bpt":
         if args.verbose and passes:
-            secs = sum(p[1] for p in passes)
-            n = sum(p[0] for p in passes)
-            print(f"{n} spp in {len(passes)} passes: {secs:.3f} s, "
-                  f"{width * height * n / secs / 1e3:.1f} ksamples/s; "
-                  f"lanes clipped at the base cap {bpt.TIERS['clipped']} "
+            print(f"lanes clipped at the base cap {bpt.TIERS['clipped']} "
                   f"of {bpt.TIERS['base_lanes']}, deep passes "
                   f"{bpt.TIERS['deep_passes']} of {bpt.TIERS['deep_lanes']}"
                   f" lanes")
@@ -306,22 +312,11 @@ def _render_passes(args, scene, method, width, height, spp, rng_seed,
                     passes=passes, deep_passes=bpt.TIERS["deep_passes"],
                     tiers=dict(bpt.TIERS), world=mesh.size, **counts)
     if args.verbose and passes and args.scene_shard:
-        secs = sum(p[1] for p in passes)
-        n = sum(p[0] for p in passes)
-        print(f"{n} spp in {len(passes)} passes: {secs:.3f} s, "
-              f"{sum(p[2] for p in passes)} render batches of depth "
-              f"{shard_depth}, {width * height * n / secs / 1e3:.1f} "
-              f"ksamples/s")
+        print(f"{sum(p[2] for p in passes)} render batches of depth "
+              f"{shard_depth} in {len(passes)} passes")
     elif args.verbose and passes:
-        # What the passes did, as against the meter's nominal casts: one
-        # closest-hit and one shadow cast per lane per iteration.
-        secs = sum(p[1] for p in passes)
-        iters = sum(p[2] for p in passes)
-        print(f"{sum(p[0] for p in passes)} spp in {len(passes)} passes: "
-              f"{secs:.3f} s, {iters} iterations, "
-              f"{width * height * sum(p[0] for p in passes) / secs / 1e3:.1f}"
-              f" ksamples/s, {2 * lanes * iters / secs / 1e6:.3f} Mrays/s "
-              f"cast (2 x {lanes} lanes x iterations)")
+        print(f"{sum(p[2] for p in passes)} iterations of {lanes} lanes in "
+              f"{len(passes)} passes")
     return dict(load_seconds=load_s, width=width, height=height, spp=done,
                 lanes=lanes, passes=passes, world=mesh.size, **counts)
 

@@ -40,6 +40,7 @@ from ..core.transform import (
     trs_inv_apply_point,
     trs_inv_apply_vector,
 )
+from ..utils.metrics import traced
 from .intersect import RAY_EPSILON, Hit, moller_trumbore
 
 Tensor = torch.Tensor
@@ -982,6 +983,7 @@ def xform_rays(rays: Tensor, trs_rows: Tensor) -> Tensor:
 # Casts (the reference's host-facing entry points)
 # ---------------------------------------------------------------------------
 
+@traced("cast.prepare")
 def prepare_cast(pt: PallasTris, o: Tensor, d: Tensor, tmin, tmax,
                  active: Tensor | None, rb: int | None = None,
                  f: Tensor | None = None):
@@ -1000,6 +1002,7 @@ def prepare_cast(pt: PallasTris, o: Tensor, d: Tensor, tmin, tmax,
     return rays, wl, cnt, wtn, tmax_a
 
 
+@traced("cast.shadow")
 def anyhit_pallas(geom, pt: PallasTris, o: Tensor, d: Tensor,
                   tmin=RAY_EPSILON, tmax=float("inf"),
                   active: Tensor | None = None, rb: int | None = None,
@@ -1014,6 +1017,7 @@ def anyhit_pallas(geom, pt: PallasTris, o: Tensor, d: Tensor,
     return occ.reshape(-1)[:r] > 0
 
 
+@traced("cast.closest")
 def intersect_pallas(geom, pt: PallasTris, o: Tensor, d: Tensor,
                      tmin=RAY_EPSILON, tmax=float("inf"),
                      active: Tensor | None = None, rb: int | None = None,

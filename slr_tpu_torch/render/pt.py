@@ -18,7 +18,11 @@ the differentiable renderer: scene leaves that require grad (texture
 values, images, spectral curves) get gradients through torch autograd,
 with the sampled directions, their pdfs and the Russian-roulette
 probability detached, as the reference stops gradients there. The casts
-take detached rays and stay outside the graph: hits are discrete.
+take detached rays and stay outside the graph: hits are discrete. Its
+spans (utils/metrics.py): `pt.camera` (the camera rays' cast and
+emission), then one `pt.bounce` a bounce holding the casts' spans,
+`pt.sort` and `pt.shade` three times (before the shadow cast, between the
+casts, after the closest hit).
 """
 from __future__ import annotations
 
@@ -60,6 +64,7 @@ from ..core.transform import trs_apply_normal, trs_apply_vector, trs_at
 from ..scene.textures import eval_float_texture, eval_normal_texture, eval_stex, perturb_frame
 from ..scene.types import CameraKind, FlatScene
 from ..spectrum.rgb import importance
+from ..utils.metrics import span
 
 Tensor = torch.Tensor
 
@@ -384,49 +389,53 @@ def _trace_core(scene: FlatScene, o: Tensor, d: Tensor, pixel_id: Tensor,
     pixel_id = rng.u32(pixel_id)
     sample_id = rng.u32(sample_id)
 
-    # Hero-wavelength sampling with equal offsets; in RGB mode the hero is
-    # a channel index.
-    u_wl = rng.uniform(seed, pixel_id, sample_id, 0, Decision.WL_SELECT)
-    if spectral:
-        u_off = rng.uniform(seed, pixel_id, sample_id, 0, Decision.WAVELENGTH)
-        wls = sample_wavelengths(u_off, u_wl)
-        lambdas, hero = wls.lambdas, wls.hero
-    else:
-        lambdas = None
-        hero = torch.clamp((u_wl * s).to(torch.int64), max=s - 1)
-    # The shutter fraction; only scenes with instances trace at one.
-    f_time = (rng.uniform(seed, pixel_id, sample_id, 0, Decision.TIME)
-              if scene.instances is not None else None)
+    with span("pt.camera"):
+        # Hero-wavelength sampling with equal offsets; in RGB mode the hero is
+        # a channel index.
+        u_wl = rng.uniform(seed, pixel_id, sample_id, 0, Decision.WL_SELECT)
+        if spectral:
+            u_off = rng.uniform(seed, pixel_id, sample_id, 0,
+                                Decision.WAVELENGTH)
+            wls = sample_wavelengths(u_off, u_wl)
+            lambdas, hero = wls.lambdas, wls.hero
+        else:
+            lambdas = None
+            hero = torch.clamp((u_wl * s).to(torch.int64), max=s - 1)
+        # The shutter fraction; only scenes with instances trace at one.
+        f_time = (rng.uniform(seed, pixel_id, sample_id, 0, Decision.TIME)
+                  if scene.instances is not None else None)
 
-    hit = isect_fn(scene, o, d, f=f_time)
-    sp = resolve_fn(scene, hit, o, d, f=f_time)
-    if RAYS is not None:
-        RAYS[0] += r
+        hit = isect_fn(scene, o, d, f=f_time)
+        sp = resolve_fn(scene, hit, o, d, f=f_time)
+        if RAYS is not None:
+            RAYS[0] += r
 
-    alpha = torch.ones((r, s), dtype=torch.float32, device=dev)
-    # A first hit on an emitter counts without MIS; so does a camera ray
-    # leaving the scene into the environment.
-    le = emitted_radiance(scene, sp.mat_id, sp.uv, dot(-d, sp.sn), lambdas)
-    radiance = torch.where(hit.mask[:, None], alpha * le, 0.0)
-    if scene.has_env:
-        eu, ev = _env_uv_from_direction(d)
-        radiance = radiance + torch.where(
-            ~hit.mask[:, None], _env_radiance(scene, eu, ev, lambdas), 0.0)
+        alpha = torch.ones((r, s), dtype=torch.float32, device=dev)
+        # A first hit on an emitter counts without MIS; so does a camera ray
+        # leaving the scene into the environment.
+        le = emitted_radiance(scene, sp.mat_id, sp.uv, dot(-d, sp.sn), lambdas)
+        radiance = torch.where(hit.mask[:, None], alpha * le, 0.0)
+        if scene.has_env:
+            eu, ev = _env_uv_from_direction(d)
+            radiance = radiance + torch.where(
+                ~hit.mask[:, None], _env_radiance(scene, eu, ev, lambdas), 0.0)
 
-    false_ = torch.zeros((r,), dtype=torch.bool, device=dev)
-    state = PathState(
-        ray_o=o, ray_d=d, alpha=alpha, radiance=radiance, active=hit.mask,
-        hero=hero, wl_selected=false_,
-        prev_pdf=torch.zeros((r,), dtype=torch.float32, device=dev),
-        prev_delta=false_, init_y=importance(alpha, hero))
-    lanes = _Lanes(pixel_id, sample_id, f_time, lambdas,
-                   torch.arange(r, device=dev))
+        false_ = torch.zeros((r,), dtype=torch.bool, device=dev)
+        state = PathState(
+            ray_o=o, ray_d=d, alpha=alpha, radiance=radiance, active=hit.mask,
+            hero=hero, wl_selected=false_,
+            prev_pdf=torch.zeros((r,), dtype=torch.float32, device=dev),
+            prev_delta=false_, init_y=importance(alpha, hero))
+        lanes = _Lanes(pixel_id, sample_id, f_time, lambdas,
+                       torch.arange(r, device=dev))
     # Every lane runs all max_depth bounces, ended ones inactive, as the
     # reference's fixed-trip loop does: each bounce casts once closest hit
     # and once a shadow ray.
     for b in range(max_depth):
-        state, sp, lanes = _bounce(scene, b, state, sp, lanes, seed, s,
-                                   isect_fn, occl_fn, resolve_fn, sort_rays)
+        with span("pt.bounce", it=b):
+            state, sp, lanes = _bounce(scene, b, state, sp, lanes, seed, s,
+                                       isect_fn, occl_fn, resolve_fn,
+                                       sort_rays)
     radiance = state.radiance
     if sort_rays:
         radiance = torch.zeros_like(radiance).index_copy(0, lanes.orig,
@@ -445,150 +454,159 @@ def _bounce(scene: FlatScene, b: int, state: PathState, sp, lanes: _Lanes,
     """One bounce of every lane: NEE at the current hits (area lights and
     the environment, one shadow ray), BSDF sampling, the next hit and its
     emission with MIS, then Russian roulette."""
-    pixel_id, sample_id, f_time, lambdas, _ = lanes
-    bounce_id = b + 1
-    fx, fy, fz = sp.tangent, sp.bitangent, sp.sn
-    wo = frame_to_local(fx, fy, fz, -state.ray_d)
-    gn_sn = frame_to_local(fx, fy, fz, sp.gn)
-    lobes = gather_lobes(scene, sp.mat_id, sp.uv, sp.p, lambdas)
-    nondelta = bsdf_has_nondelta(lobes)
+    with span("pt.shade"):
+        pixel_id, sample_id, f_time, lambdas, _ = lanes
+        bounce_id = b + 1
+        fx, fy, fz = sp.tangent, sp.bitangent, sp.sn
+        wo = frame_to_local(fx, fy, fz, -state.ray_d)
+        gn_sn = frame_to_local(fx, fy, fz, sp.gn)
+        lobes = gather_lobes(scene, sp.mat_id, sp.uv, sp.p, lambdas)
+        nondelta = bsdf_has_nondelta(lobes)
 
-    # ---- next-event estimation: one light, one shadow ray ---------------
-    u_sel = rng.uniform(seed, pixel_id, sample_id, bounce_id,
-                        Decision.LIGHT_SELECT)
-    lu0 = rng.uniform(seed, pixel_id, sample_id, bounce_id,
-                      Decision.LIGHT_POS_U)
-    lu1 = rng.uniform(seed, pixel_id, sample_id, bounce_id,
-                      Decision.LIGHT_POS_V)
-    light_tri, light_prob, is_env = _select_light(scene, u_sel)
-    lp = sample_triangle_point(scene.geometry, light_tri, lu0, lu1)
-    delta_p = lp.p - sp.p
-    dist2 = torch.clamp(dot(delta_p, delta_p), min=1e-12)
-    dist = torch.sqrt(dist2)
-    shadow_dir = delta_p / dist[:, None]
-    shadow_tmax = dist * (1.0 - 1e-3)
-    if scene.has_env:
-        # Environment lanes aim at a direction from its importance map and
-        # only need to clear the world's bounding sphere.
-        ex, ey, uvpdf = sample_continuous_2d(scene.env.dist, lu0, lu1)
-        e_theta = ey * math.pi
-        e_dir = _env_direction(ex * 2 * math.pi, e_theta)
-        env_area_pdf = uvpdf / torch.clamp(
-            2.0 * math.pi ** 2 * torch.sin(e_theta), min=1e-8)
-        shadow_dir = torch.where(is_env[:, None], e_dir, shadow_dir)
-        shadow_tmax = torch.where(is_env, 4.0 * scene.world_radius,
-                                  shadow_tmax)
-    shadow_on = state.active & nondelta
+        # ---- next-event estimation: one light, one shadow ray -----------
+        u_sel = rng.uniform(seed, pixel_id, sample_id, bounce_id,
+                            Decision.LIGHT_SELECT)
+        lu0 = rng.uniform(seed, pixel_id, sample_id, bounce_id,
+                          Decision.LIGHT_POS_U)
+        lu1 = rng.uniform(seed, pixel_id, sample_id, bounce_id,
+                          Decision.LIGHT_POS_V)
+        light_tri, light_prob, is_env = _select_light(scene, u_sel)
+        lp = sample_triangle_point(scene.geometry, light_tri, lu0, lu1)
+        delta_p = lp.p - sp.p
+        dist2 = torch.clamp(dot(delta_p, delta_p), min=1e-12)
+        dist = torch.sqrt(dist2)
+        shadow_dir = delta_p / dist[:, None]
+        shadow_tmax = dist * (1.0 - 1e-3)
+        if scene.has_env:
+            # Environment lanes aim at a direction from its importance map and
+            # only need to clear the world's bounding sphere.
+            ex, ey, uvpdf = sample_continuous_2d(scene.env.dist, lu0, lu1)
+            e_theta = ey * math.pi
+            e_dir = _env_direction(ex * 2 * math.pi, e_theta)
+            env_area_pdf = uvpdf / torch.clamp(
+                2.0 * math.pi ** 2 * torch.sin(e_theta), min=1e-8)
+            shadow_dir = torch.where(is_env[:, None], e_dir, shadow_dir)
+            shadow_tmax = torch.where(is_env, 4.0 * scene.world_radius,
+                                      shadow_tmax)
+        shadow_on = state.active & nondelta
     vis = ~occl_fn(scene, sp.p, shadow_dir, RAY_EPSILON, shadow_tmax,
                    f=f_time, active=shadow_on)
     if RAYS is not None:
         RAYS[1] += shadow_on.sum()
         RAYS[2] += ~state.active.any()
-    shadow_dir_sn = frame_to_local(fx, fy, fz, shadow_dir)
-    fs_nee = bsdf_evaluate(lobes, wo, shadow_dir_sn, gn_sn, state.hero)
-    pdf_bsdf_w = bsdf_pdf(lobes, wo, shadow_dir_sn, gn_sn, state.hero)
+    with span("pt.shade"):
+        shadow_dir_sn = frame_to_local(fx, fy, fz, shadow_dir)
+        fs_nee = bsdf_evaluate(lobes, wo, shadow_dir_sn, gn_sn, state.hero)
+        pdf_bsdf_w = bsdf_pdf(lobes, wo, shadow_dir_sn, gn_sn, state.hero)
 
-    le_nee = emitted_radiance(scene, lp.mat_id, lp.uv,
-                              dot(-shadow_dir, lp.sn), lambdas)
-    light_pdf = light_prob * lp.area_pdf
-    cos_light = dot(-shadow_dir, lp.gn).abs()
-    mis_w = power_heuristic(light_pdf, pdf_bsdf_w * cos_light / dist2)
-    g = dot(shadow_dir_sn, gn_sn).abs() * cos_light / dist2
-    contrib_nee = (state.alpha * le_nee * fs_nee
-                   * (g * mis_w / torch.clamp(light_pdf, min=1e-30))[:, None])
-    nee_ok = (state.active & nondelta & vis & (light_pdf > 0) & ~is_env)
-    radiance = state.radiance + torch.where(nee_ok[:, None], contrib_nee, 0.0)
-    if scene.has_env:
-        le_env = _env_radiance(scene, ex, ey, lambdas)
-        env_light_pdf = light_prob * env_area_pdf
-        mis_env = power_heuristic(env_light_pdf, pdf_bsdf_w)
-        g_env = dot(shadow_dir_sn, gn_sn).abs()
-        contrib_env = (state.alpha * le_env * fs_nee
-                       * (g_env * mis_env / torch.clamp(
-                           env_light_pdf, min=1e-30))[:, None])
-        env_ok = (state.active & nondelta & vis & is_env
-                  & (env_light_pdf > 0))
-        radiance = radiance + torch.where(env_ok[:, None], contrib_env, 0.0)
+        le_nee = emitted_radiance(scene, lp.mat_id, lp.uv,
+                                  dot(-shadow_dir, lp.sn), lambdas)
+        light_pdf = light_prob * lp.area_pdf
+        cos_light = dot(-shadow_dir, lp.gn).abs()
+        mis_w = power_heuristic(light_pdf, pdf_bsdf_w * cos_light / dist2)
+        g = dot(shadow_dir_sn, gn_sn).abs() * cos_light / dist2
+        contrib_nee = (state.alpha * le_nee * fs_nee
+                       * (g * mis_w
+                          / torch.clamp(light_pdf, min=1e-30))[:, None])
+        nee_ok = (state.active & nondelta & vis & (light_pdf > 0) & ~is_env)
+        radiance = state.radiance + torch.where(nee_ok[:, None],
+                                                contrib_nee, 0.0)
+        if scene.has_env:
+            le_env = _env_radiance(scene, ex, ey, lambdas)
+            env_light_pdf = light_prob * env_area_pdf
+            mis_env = power_heuristic(env_light_pdf, pdf_bsdf_w)
+            g_env = dot(shadow_dir_sn, gn_sn).abs()
+            contrib_env = (state.alpha * le_env * fs_nee
+                           * (g_env * mis_env / torch.clamp(
+                               env_light_pdf, min=1e-30))[:, None])
+            env_ok = (state.active & nondelta & vis & is_env
+                      & (env_light_pdf > 0))
+            radiance = radiance + torch.where(env_ok[:, None], contrib_env,
+                                              0.0)
 
-    # ---- BSDF sampling ---------------------------------------------------
-    uc = rng.uniform(seed, pixel_id, sample_id, bounce_id,
-                     Decision.BSDF_COMPONENT)
-    u0 = rng.uniform(seed, pixel_id, sample_id, bounce_id, Decision.BSDF_U)
-    u1 = rng.uniform(seed, pixel_id, sample_id, bounce_id, Decision.BSDF_V)
-    smp = bsdf_sample(lobes, wo, gn_sn, state.hero, state.wl_selected, uc,
-                      u0, u1)
-    # Gradients flow through fs, Le and the throughput only: the sampled
-    # direction and its pdf are constants to autograd.
-    smp = smp._replace(wi=smp.wi.detach(), pdf=smp.pdf.detach())
-    wl_selected = state.wl_selected | smp.dispersive
-    dir_pdf = torch.where(smp.dispersive, smp.pdf / s, smp.pdf)
-    cos_sn = dot(smp.wi, gn_sn).abs()
-    new_alpha = state.alpha * smp.fs * (
-        cos_sn / torch.clamp(dir_pdf, min=1e-30))[:, None]
-    sample_ok = state.active & (dir_pdf > 0) & ~(smp.fs == 0.0).all(-1)
-    new_o = sp.p
-    new_d = frame_from_local(fx, fy, fz, smp.wi)
-    is_delta = smp.is_delta
+        # ---- BSDF sampling -----------------------------------------------
+        uc = rng.uniform(seed, pixel_id, sample_id, bounce_id,
+                         Decision.BSDF_COMPONENT)
+        u0 = rng.uniform(seed, pixel_id, sample_id, bounce_id, Decision.BSDF_U)
+        u1 = rng.uniform(seed, pixel_id, sample_id, bounce_id, Decision.BSDF_V)
+        smp = bsdf_sample(lobes, wo, gn_sn, state.hero, state.wl_selected, uc,
+                          u0, u1)
+        # Gradients flow through fs, Le and the throughput only: the sampled
+        # direction and its pdf are constants to autograd.
+        smp = smp._replace(wi=smp.wi.detach(), pdf=smp.pdf.detach())
+        wl_selected = state.wl_selected | smp.dispersive
+        dir_pdf = torch.where(smp.dispersive, smp.pdf / s, smp.pdf)
+        cos_sn = dot(smp.wi, gn_sn).abs()
+        new_alpha = state.alpha * smp.fs * (
+            cos_sn / torch.clamp(dir_pdf, min=1e-30))[:, None]
+        sample_ok = state.active & (dir_pdf > 0) & ~(smp.fs == 0.0).all(-1)
+        new_o = sp.p
+        new_d = frame_from_local(fx, fy, fz, smp.wi)
+        is_delta = smp.is_delta
 
     # ---- coherence re-sort: a permutation of the lanes -------------------
     if sort_rays:
-        order = torch.argsort(_ray_sort_key(scene, new_o, new_d, sample_ok),
-                              stable=True)
-        (state, new_o, new_d, sample_ok, new_alpha, radiance, dir_pdf,
-         is_delta, wl_selected, lanes) = _permute(
-            order, state, new_o, new_d, sample_ok, new_alpha, radiance,
-            dir_pdf, is_delta, wl_selected, lanes)
-        pixel_id, sample_id, f_time, lambdas, _ = lanes
+        with span("pt.sort"):
+            order = torch.argsort(
+                _ray_sort_key(scene, new_o, new_d, sample_ok), stable=True)
+            (state, new_o, new_d, sample_ok, new_alpha, radiance, dir_pdf,
+             is_delta, wl_selected, lanes) = _permute(
+                order, state, new_o, new_d, sample_ok, new_alpha, radiance,
+                dir_pdf, is_delta, wl_selected, lanes)
+            pixel_id, sample_id, f_time, lambdas, _ = lanes
 
     # ---- the next hit and its emission (MIS against light sampling) ------
     hit = isect_fn(scene, new_o, new_d, f=f_time, active=sample_ok)
-    sp_next = resolve_fn(scene, hit, new_o, new_d, f=f_time)
-    if RAYS is not None:
-        RAYS[0] += sample_ok.sum()
-    still = sample_ok & hit.mask
-    le_hit = emitted_radiance(scene, sp_next.mat_id, sp_next.uv,
-                              dot(-new_d, sp_next.sn), lambdas)
-    dp_next = sp_next.p - new_o
-    d2 = torch.clamp(dot(dp_next, dp_next), min=1e-12)
-    cos_g = dot(new_d, sp_next.gn).abs()
-    light_pdf_hit = (_area_light_prob(scene) * sp_next.area_pdf * d2
-                     / torch.clamp(cos_g, min=1e-12))
-    mis_bsdf = torch.where(is_delta, 1.0,
-                           power_heuristic(dir_pdf, light_pdf_hit))
-    emissive_hit = still & is_emissive(scene.materials, sp_next.mat_id)
-    radiance = radiance + torch.where(
-        emissive_hit[:, None], new_alpha * le_hit * mis_bsdf[:, None], 0.0)
-    if scene.has_env:
-        # An escaped ray meets the environment, weighted against its
-        # importance map.
-        esc = sample_ok & ~hit.mask
-        ieu, iev = _env_uv_from_direction(new_d)
-        env_le_hit = _env_radiance(scene, ieu, iev, lambdas)
-        env_pdf_hit = (scene.lights.env_prob
-                       * pdf_continuous_2d(scene.env.dist, ieu, iev)
-                       / torch.clamp(2.0 * math.pi ** 2
-                                     * torch.sin(iev * math.pi), min=1e-8))
-        mis_env_hit = torch.where(is_delta, 1.0,
-                                  power_heuristic(dir_pdf, env_pdf_hit))
+    with span("pt.shade"):
+        sp_next = resolve_fn(scene, hit, new_o, new_d, f=f_time)
+        if RAYS is not None:
+            RAYS[0] += sample_ok.sum()
+        still = sample_ok & hit.mask
+        le_hit = emitted_radiance(scene, sp_next.mat_id, sp_next.uv,
+                                  dot(-new_d, sp_next.sn), lambdas)
+        dp_next = sp_next.p - new_o
+        d2 = torch.clamp(dot(dp_next, dp_next), min=1e-12)
+        cos_g = dot(new_d, sp_next.gn).abs()
+        light_pdf_hit = (_area_light_prob(scene) * sp_next.area_pdf * d2
+                         / torch.clamp(cos_g, min=1e-12))
+        mis_bsdf = torch.where(is_delta, 1.0,
+                               power_heuristic(dir_pdf, light_pdf_hit))
+        emissive_hit = still & is_emissive(scene.materials, sp_next.mat_id)
         radiance = radiance + torch.where(
-            esc[:, None], new_alpha * env_le_hit * mis_env_hit[:, None], 0.0)
+            emissive_hit[:, None], new_alpha * le_hit * mis_bsdf[:, None], 0.0)
+        if scene.has_env:
+            # An escaped ray meets the environment, weighted against its
+            # importance map.
+            esc = sample_ok & ~hit.mask
+            ieu, iev = _env_uv_from_direction(new_d)
+            env_le_hit = _env_radiance(scene, ieu, iev, lambdas)
+            env_pdf_hit = (scene.lights.env_prob
+                           * pdf_continuous_2d(scene.env.dist, ieu, iev)
+                           / torch.clamp(2.0 * math.pi ** 2
+                                         * torch.sin(iev * math.pi), min=1e-8))
+            mis_env_hit = torch.where(is_delta, 1.0,
+                                      power_heuristic(dir_pdf, env_pdf_hit))
+            radiance = radiance + torch.where(
+                esc[:, None], new_alpha * env_le_hit * mis_env_hit[:, None],
+                0.0)
 
-    # ---- Russian roulette on the hero importance (no gradient) -----------
-    cont_p = torch.clamp(importance(new_alpha, state.hero)
-                         / torch.clamp(state.init_y, min=1e-30),
-                         max=1.0).detach()
-    survive = rng.uniform(seed, pixel_id, sample_id, bounce_id,
-                          Decision.RR) < cont_p
-    new_alpha = torch.where(
-        survive[:, None], new_alpha / torch.clamp(cont_p, min=1e-30)[:, None],
-        new_alpha)
-    active = still & survive
-    new_state = PathState(
-        ray_o=new_o, ray_d=new_d,
-        alpha=torch.where(active[:, None], new_alpha, state.alpha),
-        radiance=radiance, active=active, hero=state.hero,
-        wl_selected=torch.where(active, wl_selected, state.wl_selected),
-        prev_pdf=dir_pdf, prev_delta=is_delta, init_y=state.init_y)
+        # ---- Russian roulette on the hero importance (no gradient) -------
+        cont_p = torch.clamp(importance(new_alpha, state.hero)
+                             / torch.clamp(state.init_y, min=1e-30),
+                             max=1.0).detach()
+        survive = rng.uniform(seed, pixel_id, sample_id, bounce_id,
+                              Decision.RR) < cont_p
+        new_alpha = torch.where(
+            survive[:, None],
+            new_alpha / torch.clamp(cont_p, min=1e-30)[:, None],
+            new_alpha)
+        active = still & survive
+        new_state = PathState(
+            ray_o=new_o, ray_d=new_d,
+            alpha=torch.where(active[:, None], new_alpha, state.alpha),
+            radiance=radiance, active=active, hero=state.hero,
+            wl_selected=torch.where(active, wl_selected, state.wl_selected),
+            prev_pdf=dir_pdf, prev_delta=is_delta, init_y=state.init_y)
     return new_state, sp_next, lanes
 
 

@@ -10,8 +10,11 @@ cast and one shadow cast per lane. The random streams are keyed by
 depend on which lane traces it.
 
 The reference's `lax.while_loop` is a Python loop here, with one host sync
-per iteration to test for remaining work. Work counters are uint32 values
-held in int64.
+per iteration to test for remaining work, which counts the live lanes too.
+Each iteration is a `wavefront.iter` span (utils/metrics.py) holding the
+casts' spans and the phases `wavefront.shade` (twice), `wavefront.bank`,
+`wavefront.sort` and `wavefront.sync`. Work counters are uint32 values held
+in int64.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from ..core.rng import Decision
 from ..core.sampling import pdf_continuous_2d, power_heuristic, sample_continuous_2d
 from ..scene.types import FlatScene
 from ..spectrum.rgb import importance
+from ..utils.metrics import span
 from .pt import (
     _area_light_prob,
     _camera_ray,
@@ -167,18 +171,40 @@ def _run_wavefront(scene: FlatScene, n_pix: int, spp_end: int, seed: int,
     counter = torch.tensor(work_lo + r, dtype=torch.int64, device=dev)
     film = torch.zeros((n_pix + 1, s_film), dtype=torch.float32, device=dev)
     n_iters = 0
+    # The loop's test for remaining work is its one host sync an
+    # iteration; it counts the live lanes, which the iteration's span keeps.
+    n_live = int((lane.work < total).sum())
+    while n_live > 0:
+        with span("wavefront.iter", it=n_iters, live=n_live, lanes=r):
+            lane, counter = _iteration(
+                scene, lane, counter, film, ones, total, n_pix, sample_offset,
+                seed, width, height, s, spectral, max_depth, sort_rays)
+            n_iters += 1
+            with span("wavefront.sync"):
+                n_live = int((lane.work < total).sum())
 
-    while bool((lane.work < total).any()):
-        lane_on = lane.work < total
+    return film[:n_pix], n_iters
+
+
+def _iteration(scene: FlatScene, lane: LaneState, counter: Tensor,
+               film: Tensor, ones: Tensor, total: int, n_pix: int,
+               sample_offset: int, seed: int, width: int, height: int, s: int,
+               spectral: bool, max_depth: int, sort_rays: bool):
+    """One wavefront iteration: cast, shade, shadow cast, shade, bank the
+    finished samples into `film` (in place) and claim new work, sort.
+    `ones` is the lanes' (R, S) throughput of a fresh sample. Returns
+    (lanes, work counter)."""
+    lane_on = lane.work < total
+    # A path keeps its sample's shutter fraction for all its casts.
+    ft = lane.f_time if scene.instances is not None else None
+    lam_s = lane.lambdas if spectral else None
+
+    # ---- cast the in-flight ray -------------------------------------
+    hit = scene_intersect_alpha(scene, lane.ray_o, lane.ray_d, f=ft,
+                                active=lane_on)
+    with span("wavefront.shade"):
         pixel_id, sample_id = _work_pixel_sample(lane.work, n_pix,
                                                  sample_offset)
-        # A path keeps its sample's shutter fraction for all its casts.
-        ft = lane.f_time if scene.instances is not None else None
-        lam_s = lane.lambdas if spectral else None
-
-        # ---- cast the in-flight ray -------------------------------------
-        hit = scene_intersect_alpha(scene, lane.ray_o, lane.ray_d, f=ft,
-                                    active=lane_on)
         sp = resolve_sp(scene, hit, lane.ray_o, lane.ray_d, f=ft)
         hit_ok = lane_on & hit.mask
         first = lane.bounce == 0
@@ -253,9 +279,11 @@ def _run_wavefront(scene: FlatScene, n_pix: int, spp_end: int, seed: int,
         # NEE at hit b contributes a path of b+1 segments, allowed iff
         # b < max_depth; the same condition gates extending.
         depth_ok = (lane.bounce < max_depth) & ~lane.last
-        vis = ~scene_occluded(scene, sp.p, shadow_dir, RAY_EPSILON,
-                              shadow_tmax, f=ft,
-                              active=hit_ok & depth_ok & nondelta)
+
+    vis = ~scene_occluded(scene, sp.p, shadow_dir, RAY_EPSILON,
+                          shadow_tmax, f=ft,
+                          active=hit_ok & depth_ok & nondelta)
+    with span("wavefront.shade"):
         shadow_dir_sn = frame_to_local(fx, fy, fz, shadow_dir)
         fs_nee = bsdf_evaluate(lobes, wo, shadow_dir_sn, gn_sn, lane.hero)
         pdf_bsdf_w = bsdf_pdf(lobes, wo, shadow_dir_sn, gn_sn, lane.hero)
@@ -314,6 +342,7 @@ def _run_wavefront(scene: FlatScene, n_pix: int, spp_end: int, seed: int,
         extend = sample_ok & depth_ok
         dying = extend & ~survive
 
+    with span("wavefront.bank"):
         # ---- bank finished samples & claim new work ----------------------
         finish = lane_on & ~extend
         values = _sample_value(radiance, lane.cam_weight, lane.lambdas,
@@ -351,15 +380,14 @@ def _run_wavefront(scene: FlatScene, n_pix: int, spp_end: int, seed: int,
             f_time=_pick(regen, n_ft, lane.f_time),
         )
 
-        # ---- optional coherence re-sort (plain per-tensor indexing) ------
-        if sort_rays:
+    # ---- optional coherence re-sort (plain per-tensor indexing) ------
+    if sort_rays:
+        with span("wavefront.sort"):
             key = _ray_sort_key(scene, lane.ray_o, lane.ray_d,
                                 lane.work < total)
             order = torch.argsort(key, stable=True)
             lane = LaneState(*(x[order] for x in lane))
-        n_iters += 1
-
-    return film[:n_pix], n_iters
+    return lane, counter
 
 
 def render_wavefront(scene: FlatScene, width: int, height: int, spp: int,

@@ -286,9 +286,9 @@ def _ranks(n, argv_of_rank, timeout=300):
 def test_two_gloo_ranks_write_one_set_of_exports(tmp_path, extra):
     """`python -m slr_tpu_torch` on two CPU ranks (gloo), each given its
     own --out and --profile: rank 0 writes the exports, the checkpoint and
-    the trace and reports the meter, rank 1 nothing, and they are world
-    1's (pt: the ranks' films summed in another order; --scene-shard and
-    bpt, which rank 0 renders alone: bit for bit)."""
+    the trace and reports the passes' rate, rank 1 nothing, and they are
+    world 1's (pt: the ranks' films summed in another order; --scene-shard
+    and bpt, which rank 0 renders alone: bit for bit)."""
     args = SMALL + ["--spp", "2"] + extra
     outs = _ranks(2, lambda r: args + [
         "--out", str(tmp_path / f"r{r}"), "-v",
@@ -300,8 +300,8 @@ def test_two_gloo_ranks_write_one_set_of_exports(tmp_path, extra):
         == names
     assert not (tmp_path / "r1").exists()
     assert "samples" in outs[0] and "samples" not in outs[1]
-    # The meter's report and the first pass's trace: rank 0 only.
-    assert "Mrays/s" in outs[0] and "Mrays/s" not in outs[1]
+    # The passes' rate and the first pass's trace: rank 0 only.
+    assert "ksamples/s" in outs[0] and "ksamples/s" not in outs[1]
     assert os.path.getsize(tmp_path / "trace0" / "trace.json") > 0
     assert not (tmp_path / "trace1").exists()
     with np.load(tmp_path / "r0" / "checkpoint.npz") as x, \
