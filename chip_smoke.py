@@ -278,7 +278,9 @@ OPS_PER_XFORM = 8 + 12 + 9 + 4 + 9 + 12 + 2 * 33 + 3 + 6 + 9
 SOURCE = "slr_tpu_torch/csrc/traverse.cu"
 REPLACES = {"closest_hit": "slr_tpu/accel/pallas_intersect.py:1127",
             "any_hit": "slr_tpu/accel/pallas_intersect.py:1205",
-            "xform_rays": "slr_tpu/accel/pallas_intersect.py:748"}
+            "xform_rays": "slr_tpu/accel/pallas_intersect.py:748",
+            "worklist": "none (jnp in slr_tpu/accel/pallas_intersect.py's "
+                        "wrappers)"}
 
 
 def log(*args):
@@ -588,6 +590,21 @@ def shadow_rays(n, rs):
             _cuda_tensor(dist * (1.0 - 1e-3)))
 
 
+def traversals(launches: dict) -> dict:
+    """The traversal kernels' launches of a `tv.LAUNCHES` count (which also
+    counts the worklist builds: `worklist_gate`)."""
+    return {k: launches[k] for k in ("closest_hit", "any_hit", "xform_rays")}
+
+
+def worklist_gate(tag, launches, casts) -> None:
+    """Every cast of a render builds its worklists in one launch of the
+    worklist kernel, and no table of the port's scenes is too large for its
+    in-block sort."""
+    if launches["worklist"] != casts or launches["worklist_tensor_sort"]:
+        raise AssertionError(f"{tag} worklist launches {launches}: expected "
+                             f"{casts}, none sorted by the tensor code")
+
+
 def median_ms(fn, runs=TIMING_RUNS) -> float:
     fn()
     torch.cuda.synchronize()
@@ -734,6 +751,43 @@ def check_any(label, pt, o, d, tmax, active, f=None):
                 max_abs_err=err)
 
 
+def check_worklist(label, pt, o, d, tmin, tmax, active, f=None) -> dict:
+    """The worklist kernel against its plain version on the same rays: the
+    packed rays, worklists, counts, near distances and clamped tmax equal
+    (NaN where the other has NaN). Bound: its inputs read once (rays,
+    per-ray bounds, the entry boxes) and its outputs written once over the
+    memory rate; the slab tests (~25 fp32 operations a ray and entry) are
+    far under it."""
+    got = tv.prepare_cast(pt, o, d, tmin, tmax, active, f=f)
+    want = tv.prepare_cast_plain(pt, o, d, tmin, tmax, active,
+                                 tv._auto_rb(pt), f)
+    torch.cuda.synchronize()
+    differ = {}
+    for name, a, b in zip(("rays", "wl", "cnt", "wtn", "tmax_a"), got, want):
+        bad = a != b
+        if a.is_floating_point():
+            bad &= ~(torch.isnan(a) & torch.isnan(b))
+        differ[name] = int(bad.sum())
+    ms = median_ms(lambda: tv.prepare_cast(pt, o, d, tmin, tmax, active,
+                                           f=f))
+    plain = median_ms(lambda: tv.prepare_cast_plain(
+        pt, o, d, tmin, tmax, active, tv._auto_rb(pt), f), PLAIN_RUNS)
+    ins = [o, d, pt.cast_boxes] + [x for x in (tmin, tmax, active, f)
+                                   if isinstance(x, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in ins + list(got))
+    bms = nbytes / PEAK_BYTES * 1e3
+    nb = got[2].shape[0]
+    log(f"[kernel] worklist {label}: {o.shape[0]} rays, {nb} blocks of "
+        f"{tv._auto_rb(pt)}, {pt.n_entries} entries: {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {bms:.4f} ms (bytes), listed entries "
+        f"{int(got[2].sum())}, values that differ {differ}")
+    if any(differ.values()):
+        raise AssertionError(f"the worklist kernel disagrees with its plain "
+                             f"version on {label} rays")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by="bytes",
+                max_abs_err=0.0)
+
+
 def check_xform(pt, o, d, f, rs):
     """The instance transform on its own, at the main path's shape: 49,152
     packed rays in blocks of the grass table's width, one seeded instance
@@ -815,6 +869,14 @@ def phase_kernels(scene, morton) -> dict:
         # The main path's casts are mostly bounce and shadow rays: the
         # in-box closest-hit and the shadow any-hit sets give the times.
         res = {"closest_hit": dict(closest[1]), "any_hit": dict(anyhit[0])}
+        # The worklist build: bounce rays (the table's ray set) and shadow
+        # rays (per-ray tmax).
+        res["worklist"] = check_worklist(f"{tag} in-box", pt,
+                                         *sets["closest in-box"][1:3],
+                                         RAY_EPSILON,
+                                         *sets["closest in-box"][3:])
+        check_worklist(f"{tag} shadow", pt, *sets["any shadow"][1:3],
+                       RAY_EPSILON, *sets["any shadow"][3:])
         res["closest_hit"]["max_abs_err"] = max(c["max_abs_err"]
                                                 for c in closest)
         res["any_hit"]["max_abs_err"] = max(a["max_abs_err"] for a in anyhit)
@@ -961,8 +1023,9 @@ def phase_grass_kernels(scene) -> dict:
     out["closest_hit"]["max_abs_err"] = max(c["max_abs_err"] for c in closest)
     out["any_hit"]["max_abs_err"] = max(x["max_abs_err"] for x in anyhit)
     # The worklist build's cost per cast, at the main path's lane count.
-    wl_ms = median_ms(lambda: tv.prepare_cast(
-        pt, o_b, d_b, RAY_EPSILON, float("inf"), act_b, f=f_b), 10)
+    out["worklist"] = check_worklist("grass bounce", pt, o_b, d_b,
+                                     RAY_EPSILON, float("inf"), act_b, f_b)
+    wl_ms = out["worklist"]["ms"]
     log(f"[grass] prepare_cast (ranges, packing, per-block worklists over "
         f"{pt.n_entries} entry boxes): {wl_ms:.3f} ms per cast")
     out["prepare_cast_ms"] = wl_ms
@@ -1014,10 +1077,12 @@ def phase_main_path(scene) -> dict:
     if not (mean > 0.0 and neg < 0.05):
         raise AssertionError(f"implausible image: mean {mean}, negative "
                              f"share {neg}")
-    if launches != {"closest_hit": iters, "any_hit": iters, "xform_rays": 0}:
+    if traversals(launches) != {"closest_hit": iters, "any_hit": iters,
+                                "xform_rays": 0}:
         raise AssertionError(f"launch counts {launches} != {iters} "
                              f"iterations for each traversal kernel (and no "
                              f"launch of the transform on its own)")
+    worklist_gate("main", launches, 2 * iters)
     return dict(seconds=secs, ksamples_per_s=ksps, mrays_per_s=mrays,
                 iterations=iters, lanes=lanes, mean=mean, launches=launches)
 
@@ -1173,10 +1238,12 @@ def phase_grass_main_path(scene) -> dict:
                              "shape")
     if not lit > 0.10:
         raise AssertionError(f"only {lit} of the grass pixels are non-black")
-    if launches != {"closest_hit": iters, "any_hit": iters, "xform_rays": 0}:
+    if traversals(launches) != {"closest_hit": iters, "any_hit": iters,
+                                "xform_rays": 0}:
         raise AssertionError(f"launch counts {launches}: expected {iters} "
                              f"for each traversal kernel (and no launch of "
                              f"the transform on its own)")
+    worklist_gate("grass main", launches, 2 * iters)
     if not (work["closest_hit_transforms"] > 0
             and work["any_hit_transforms"] > 0):
         raise AssertionError(f"a traversal kernel ran no instance transform "
@@ -1276,7 +1343,8 @@ def phase_cli(tmp) -> dict:
         ["checkpoint.npz"]
     if names != sorted(want) or res["spp"] != CLI_SPP:
         raise AssertionError(f"CLI exports {names}, expected {want}")
-    if launches != {"closest_hit": iters, "any_hit": iters, "xform_rays": 0}:
+    if traversals(launches) != {"closest_hit": iters, "any_hit": iters,
+                                "xform_rays": 0}:
         raise AssertionError(f"launch counts {launches} != {iters} summed "
                              f"iterations for each traversal kernel")
     ours = read_bmp(os.path.join(out, want[-2]))
@@ -1382,7 +1450,7 @@ def phase_shading(path, tmp) -> dict:
     log(ascii_view(torch.as_tensor(img / 255.0, device=DEV)))
     want = {"closest_hit": 2 * iters + recasts["casts"], "any_hit": 0,
             "xform_rays": 0}
-    if launches != want:
+    if traversals(launches) != want:
         raise AssertionError(f"launch counts {launches}, expected {want} "
                              f"(2 x {iters} iterations + {recasts['casts']} "
                              f"alpha recasts, no any hit)")
@@ -1506,7 +1574,8 @@ def phase_env() -> dict:
         f"difference from the environment {bg_err:.3g}; sphere pixels "
         f"{int(on.sum())}, mean radiance / camera weight {rho:.5f} "
         f"(rho {ENV_RHO})")
-    if launches != {"closest_hit": iters, "any_hit": iters, "xform_rays": 0}:
+    if traversals(launches) != {"closest_hit": iters, "any_hit": iters,
+                                "xform_rays": 0}:
         raise AssertionError(f"env launch counts {launches} != {iters} "
                              f"iterations for each traversal kernel")
     if not (bg.any() and on.any()) or bg_err > 1e-5:
@@ -1588,7 +1657,7 @@ def phase_pt(scene) -> dict:
                              f"share {neg}")
     want = {"closest_hit": batches * PT_SPP * (1 + PT_DEPTH) + recasts,
             "any_hit": batches * PT_SPP * PT_DEPTH, "xform_rays": 0}
-    if launches != want:
+    if traversals(launches) != want:
         raise AssertionError(f"pt launch counts {launches} != {want}")
     return dict(seconds=secs, ksamples_per_s=ksps, mrays_per_s=mrays,
                 launches=launches, rays=[closest_rays, shadow_rays],
@@ -1693,7 +1762,7 @@ def phase_pt_golden() -> dict:
         f"1e-4 of tests/goldens/grass_field_n8.npz {close:.6f} ({n_far} "
         f"beyond), means rel {rel:.2e}")
     want = {"closest_hit": 32 * 6, "any_hit": 32 * 5, "xform_rays": 0}
-    if launches != want:
+    if traversals(launches) != want:
         raise AssertionError(f"golden launch counts {launches} != {want}")
     if close < 0.98 or rel >= 0.01:
         raise AssertionError("the grass render disagrees with its golden")
@@ -1851,7 +1920,8 @@ def phase_debug(tmp) -> dict:
     log(f"[debug] main in-process: {res['width']}x{res['height']}, scene "
         f"load {res['load_seconds']:.3f} s, AOVs {res['seconds']:.3f} s, "
         f"launches {launches}")
-    if launches != {"closest_hit": 1, "any_hit": 0, "xform_rays": 0}:
+    if traversals(launches) != {"closest_hit": 1, "any_hit": 0,
+                                "xform_rays": 0}:
         raise AssertionError(f"debug launch counts {launches}")
     aov_gates(out, "debug")
     out2 = os.path.join(tmp, "debug_module")
@@ -2000,7 +2070,7 @@ def run_bpt(tag, scene, width, height, spp, ray_batch=None) -> dict:
             torch.isfinite(img).all()) or not mean > 0.0:
         raise AssertionError(f"{tag} image is not finite, black or of the "
                              f"wrong shape")
-    if launches != want:
+    if traversals(launches) != want:
         raise AssertionError(f"{tag} launch counts {launches} != {want}")
     return dict(seconds=secs, ksamples_per_s=ksps, clipped_share=clipped,
                 tiers=tiers, launches=launches, peak_gib=peak, mean=mean)
@@ -2139,7 +2209,7 @@ def phase_bpt_cli(tmp) -> dict:
                         + ["checkpoint.npz"])
     if names != want_files or res["spp"] != BPT_CLI_SPP:
         raise AssertionError(f"BPT CLI exports {names}")
-    if launches != want:
+    if traversals(launches) != want:
         raise AssertionError(f"BPT CLI launch counts {launches} != {want}")
     ours = read_bmp(os.path.join(out, want_files[-2]))
     log(ascii_view(torch.as_tensor(ours / 255.0, device=DEV)))
@@ -2225,7 +2295,7 @@ def phase_ppm_cli(tmp, pt_mean) -> dict:
     photon paths a wave, bounces capped at --max-depth 100) and 8 waves:
     finite, non-negative, the mean within rel 0.45 of the [cli] phase's
     path-traced image, and the chains' bookkeeping within its bounds."""
-    launches = {"closest_hit": 0, "any_hit": 0, "xform_rays": 0}
+    launches = dict.fromkeys(tv.LAUNCHES, 0)
     out = {}
     for method in ("sppm", "amcmcppm"):
         torch.cuda.synchronize()
@@ -2357,7 +2427,7 @@ def _timed(fn):
 
 
 def _gate_launches(tag, launches, want) -> None:
-    if launches != want:
+    if traversals(launches) != want:
         raise AssertionError(f"{tag} launch counts {launches} != {want}")
 
 
@@ -2728,8 +2798,8 @@ def phase_scene_shard_cli(tmp, path) -> dict:
     m = re.search(r"kernel launches (\{[^}]*\}), alpha recasts (\d+), "
                   r"collectives (\d+) \((\d+) B\), peak ([0-9.]+|nan) GiB",
                   stdout)
-    s = re.search(r"1 spp in 1 passes: ([0-9.]+) s, (\d+) render batches",
-                  stdout)
+    s = re.search(r"1 spp in ([0-9.]+) s of passes:.*?(\d+) render batches "
+                  r"of depth", stdout, re.S)
     if not m or not s:
         raise AssertionError("scene shard cli: no verbose report")
     launches = json.loads(m.group(1).replace("'", '"'))
@@ -3014,6 +3084,16 @@ def main() -> None:
             g_main["work"]["closest_hit_transforms"]
             + g_main["work"]["any_hit_transforms"]),
         library_ms=None, **g_timings["xform_rays"]))
+    # The worklist build: one launch a cast on every path.
+    by_path = {k: p["launches"].get("worklist") for k, p in paths.items()}
+    kernels.append(dict(
+        name="worklist", route="cuda", source=SOURCE,
+        replaces=REPLACES["worklist"],
+        launches=sum(v for v in by_path.values() if v is not None),
+        launches_by_path=by_path, library_ms=None, **timings["SBVH"][
+            "worklist"], morton=dict(timings["Morton"]["worklist"]),
+        grass=dict(launches=g_main["launches"]["worklist"],
+                   **g_timings["worklist"])))
     if not all(k["launches_by_path"][p] > 0 for k in kernels[:2]
                for p in ("cornell", "grass", "cli", "env", "pt", "pt_golden",
                          "grad", "dist", "scene_shard")) \

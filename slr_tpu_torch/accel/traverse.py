@@ -7,14 +7,18 @@ the scene's SBVH (`_bvh_chunk_order`), whose boxes are the subtrees' node
 boxes, or Morton slices. The casts follow
 the reference's wrappers `intersect_pallas` / `anyhit_pallas`: per-ray
 ranges with inert inactive lanes, the scene-exit clamp of tmax, packed rays,
-per-block culled near-sorted worklists (built here with plain tensor ops),
-then the traversal, then slot remap and Möller-Trumbore barycentrics.
+per-block culled near-sorted worklists, then the traversal, then slot remap
+and Möller-Trumbore barycentrics.
 
-The traversal is `closest_hit` / `any_hit`: on CUDA tensors they launch the
-hand-written kernels of `csrc/traverse.cu`; on CPU tensors they run their
-plain PyTorch versions (`closest_hit_plain` / `any_hit_plain`), which walk
-the same worklists with the same arithmetic in the same order. A CUDA
-tensor never takes the plain path.
+`prepare_cast` builds the ranges, packed rays and worklists: on CUDA tensors
+in one launch of the hand-written worklist kernel (`build_worklists`), on
+CPU tensors with plain tensor ops (`prepare_cast_plain`, the reference
+wrappers' steps), which give the same values. The traversal is
+`closest_hit` / `any_hit`: on CUDA tensors they launch the hand-written
+kernels of `csrc/traverse.cu`; on CPU tensors they run their plain PyTorch
+versions (`closest_hit_plain` / `any_hit_plain`), which walk the same
+worklists with the same arithmetic in the same order. A CUDA tensor never
+takes a plain path.
 
 Instanced scenes ride the same tables: after the static chunks come the
 local-space chunks of each BLAS, and after the static entries one entry per
@@ -56,8 +60,11 @@ MAX_CHUNK = 128
 # one where it launches its kernel. The plain versions do not count.
 # `xform_rays` is the transform launched on its own; the casts never do
 # that (inside the traversal kernels it is a device function, whose work
-# `track_work` counts).
-LAUNCHES = {"closest_hit": 0, "any_hit": 0, "xform_rays": 0}
+# `track_work` counts). `worklist` is the worklist build of a cast;
+# `worklist_tensor_sort` counts those of its launches whose table had more
+# entries than the kernel sorts (WORKLIST_MAX_SORT), sorted by tensor code.
+LAUNCHES = {"closest_hit": 0, "any_hit": 0, "xform_rays": 0, "worklist": 0,
+            "worklist_tensor_sort": 0}
 
 # Work the casts' kernels needed since `track_work(device)`, counted on the
 # device by the kernels themselves: int64 [closest-hit tests, closest-hit
@@ -521,7 +528,7 @@ def extend_pallas_instanced(static_pt: PallasTris, positions, tri_vidx,
 
 
 # ---------------------------------------------------------------------------
-# Rays and worklists (plain tensor ops around the kernels)
+# Rays and worklists: the plain version of the worklist kernel
 # ---------------------------------------------------------------------------
 
 def _per_ray(v, r: int, device) -> Tensor:
@@ -611,15 +618,36 @@ def _chunk_worklist(rays: Tensor, boxes: Tensor,
         tn_parts.append(torch.where(ok, tn, T_FAR).amin(2))
     blk = torch.cat(blk_parts, dim=1)                          # (NB, NE)
     tn_blk = torch.cat(tn_parts, dim=1)
-    key = torch.where(blk, tn_blk, float("inf"))
+    count = blk.sum(1)
+    wl, near = _sorted_worklist(torch.where(blk, tn_blk, float("inf")), count)
+    return wl, count.to(torch.int32), near
+
+
+def _sorted_worklist(key: Tensor, count: Tensor) -> tuple[Tensor, Tensor]:
+    """Block-entry keys (NB, NE) (+inf where no ray of the block meets the
+    entry) and the (NB,) int64 counts of finite keys -> the worklists
+    (NB*NE,) int32 in (key, entry) order, entries past `count` repeating the
+    last listed one (entry 0 where none is), and the keys (NB*NE,) clamped
+    to T_FAR."""
     near, order = torch.sort(key, dim=1, stable=True)
     near = torch.clamp(near, max=T_FAR)
-    count = blk.sum(1)
     last = torch.gather(order, 1, torch.clamp(count - 1, min=0)[:, None])
-    pos = torch.arange(ne, device=rays.device)[None, :]
+    pos = torch.arange(key.shape[1], device=key.device)[None, :]
     wl = torch.where(pos < count[:, None], order, last)
-    return (wl.to(torch.int32).reshape(-1), count.to(torch.int32),
-            near.reshape(-1).contiguous())
+    return wl.to(torch.int32).reshape(-1), near.reshape(-1).contiguous()
+
+
+def prepare_cast_plain(pt: PallasTris, o: Tensor, d: Tensor, tmin, tmax,
+                       active: Tensor | None, rb: int,
+                       f: Tensor | None = None):
+    """The plain version of `build_worklists`: ranges, exit clamp, packed
+    rays and worklists by tensor functions, on any device. Returns (rays,
+    wl, cnt, wtn, tmax_a)."""
+    tmin_a, tmax_a = _ray_ranges(o.shape[0], tmin, tmax, active, o.device)
+    tmax_a = _scene_exit_clamp(o, d, tmax_a, pt.cast_boxes)
+    rays, _ = _pack_rays(o, d, tmin_a, tmax_a, rb, f)
+    wl, cnt, wtn = _chunk_worklist(rays, pt.cast_boxes)
+    return rays, wl, cnt, wtn, tmax_a
 
 
 def _auto_rb(pt: PallasTris) -> int:
@@ -785,8 +813,14 @@ _SIGNATURES = {
     "slr_any_hit": [_P] * 13 + [_I] * 4 + [_P, _P, _I],
     "slr_xform_rays": [_P] * 3 + [_I] * 2 + [_P],
     "slr_traverse_info": [_I, _I, _P],
+    "slr_build_worklists": [_P] * 13 + [ctypes.c_longlong] * 4
+    + [ctypes.c_float] * 2 + [_I] * 5 + [_P],
 }
 MAX_RB = 256   # lanes per kernel block, a multiple of 32
+# The most entries the worklist kernel sorts in one block's shared memory
+# (WL_MAX_SORT in csrc/traverse.cu: 16,384 keys and indices, 128 KB); a
+# larger table's keys are sorted by the tensor code.
+WORKLIST_MAX_SORT = 16384
 
 
 def _library():
@@ -979,6 +1013,81 @@ def xform_rays(rays: Tensor, trs_rows: Tensor) -> Tensor:
     return out
 
 
+def _per_ray_arg(v, r: int, dev) -> tuple[Tensor | None, int, float]:
+    """A per-ray operand of the worklist kernel: (float32 values, element
+    step, 0.0) for a tensor that broadcasts to (r,), (None, 0, value) for
+    a number."""
+    if not isinstance(v, Tensor):
+        return None, 0, float(v)
+    v = torch.broadcast_to(v.detach().to(dev, torch.float32), (r,))
+    return v, v.stride(0), 0.0
+
+
+def build_worklists(pt: PallasTris, o: Tensor, d: Tensor, tmin, tmax,
+                    active: Tensor | None, rb: int, f: Tensor | None = None):
+    """One launch of the worklist kernel: per-ray ranges ([T_FAR, -T_FAR]
+    on inactive lanes), tmax clamped at the exit from the union of the
+    entry boxes, the packed rays (NB, 16, rb) and each block's culled,
+    near-sorted worklist. Returns (rays, wl, cnt, wtn, tmax_a), equal to
+    `prepare_cast_plain`'s on the same CUDA tensors. Above
+    WORKLIST_MAX_SORT entries the kernel writes the blocks' keys and the
+    tensor code sorts them (counted in LAUNCHES["worklist_tensor_sort"]).
+
+    Replaces no TPU kernel: the reference builds the worklists with jnp in
+    slr_tpu/accel/pallas_intersect.py's wrappers, as `prepare_cast_plain`
+    does with ~100 tensor operations. Its floor on an H100 is bytes: ~96 B
+    a ray (the ray read, its packed column and tmax written) plus the
+    worklists; one block a ray block does each ray's slab tests against
+    every entry box from shared memory and reduces them over the block with
+    warp minimums, then sorts the block's keys in shared memory (see
+    csrc/traverse.cu)."""
+    if o.device.type != "cuda":
+        raise ValueError(f"build_worklists: unsupported device {o.device}")
+    from ..core.cuda_build import check
+
+    dev = o.device
+    o, d = o.contiguous(), d.contiguous()
+    r, ne = o.shape[0], pt.n_entries
+    _check_tensors([(o, torch.float32, (r, 3)), (d, torch.float32, (r, 3)),
+                    (pt.cast_boxes, torch.float32, (ne, 8))], dev)
+    if rb % 32 or not 32 <= rb <= MAX_RB:
+        raise ValueError(f"ray block of {rb} lanes is not supported")
+    if ne < 1:
+        raise ValueError("build_worklists: the table has no entries")
+    tmin_t, tmin_step, tmin_s = _per_ray_arg(tmin, r, dev)
+    tmax_t, tmax_step, tmax_s = _per_ray_arg(tmax, r, dev)
+    f_t, f_step, _ = (None, 0, 0.0) if f is None else _per_ray_arg(
+        torch.as_tensor(f), r, dev)
+    act, act_step = None, 0
+    if active is not None:
+        act = torch.broadcast_to(active.detach().to(dev, torch.bool), (r,))
+        act_step = act.stride(0)
+    nb = -(-r // rb)
+    sort_n = (max(32, 1 << (ne - 1).bit_length())
+              if ne <= WORKLIST_MAX_SORT else 0)
+    rays = torch.empty((nb, ROWS, rb), dtype=torch.float32, device=dev)
+    tmax_a = torch.empty((r,), dtype=torch.float32, device=dev)
+    cnt = torch.empty((nb,), dtype=torch.int32, device=dev)
+    keys = wl = wtn = None
+    if sort_n:
+        wl = torch.empty((nb * ne,), dtype=torch.int32, device=dev)
+        wtn = torch.empty((nb * ne,), dtype=torch.float32, device=dev)
+    else:
+        keys = torch.empty((nb, ne), dtype=torch.float32, device=dev)
+    lib = _library()
+    code = lib.slr_build_worklists(
+        _ptr(o), _ptr(d), _ptr(tmin_t), _ptr(tmax_t), _ptr(act), _ptr(f_t),
+        _ptr(pt.cast_boxes), _ptr(rays), _ptr(tmax_a), _ptr(wl), _ptr(cnt),
+        _ptr(wtn), _ptr(keys), tmin_step, tmax_step, act_step, f_step,
+        tmin_s, tmax_s, r, nb, rb, ne, sort_n, _stream(dev))
+    check(lib, code, "build_worklists launch")
+    LAUNCHES["worklist"] += 1
+    if not sort_n:
+        wl, wtn = _sorted_worklist(keys, cnt.to(torch.int64))
+        LAUNCHES["worklist_tensor_sort"] += 1
+    return rays, wl, cnt, wtn, tmax_a
+
+
 # ---------------------------------------------------------------------------
 # Casts (the reference's host-facing entry points)
 # ---------------------------------------------------------------------------
@@ -987,19 +1096,17 @@ def xform_rays(rays: Tensor, trs_rows: Tensor) -> Tensor:
 def prepare_cast(pt: PallasTris, o: Tensor, d: Tensor, tmin, tmax,
                  active: Tensor | None, rb: int | None = None,
                  f: Tensor | None = None):
-    """Ranges, exit clamp, packed rays and worklists for one cast.
-    Returns (rays, wl, cnt, wtn, tmax_a)."""
+    """Ranges, exit clamp, packed rays and worklists for one cast: the
+    worklist kernel on CUDA tensors (`build_worklists`), its plain version
+    on CPU tensors. Returns (rays, wl, cnt, wtn, tmax_a)."""
     # The traversal stays outside any autograd graph: hits are discrete.
     o, d = o.detach(), d.detach()
     if isinstance(tmax, Tensor):
         tmax = tmax.detach()
-    r = o.shape[0]
     rb = rb or _auto_rb(pt)
-    tmin_a, tmax_a = _ray_ranges(r, tmin, tmax, active, o.device)
-    tmax_a = _scene_exit_clamp(o, d, tmax_a, pt.cast_boxes)
-    rays, _ = _pack_rays(o, d, tmin_a, tmax_a, rb, f)
-    wl, cnt, wtn = _chunk_worklist(rays, pt.cast_boxes)
-    return rays, wl, cnt, wtn, tmax_a
+    if o.device.type == "cpu":
+        return prepare_cast_plain(pt, o, d, tmin, tmax, active, rb, f)
+    return build_worklists(pt, o, d, tmin, tmax, active, rb, f)
 
 
 @traced("cast.shadow")

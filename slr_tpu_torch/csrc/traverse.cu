@@ -12,6 +12,8 @@
 //                         triangle tests of an instanced entry; and
 //   xform_rays_kernel  <- the same device function launched on its own, so
 //                         that it can be held against its plain version.
+// worklist_kernel, the worklist build of a cast, replaces no TPU kernel
+// (see its note below).
 // The TPU versions' two memory placements of the worklist (SMEM prefetch or
 // per-block DMA from HBM) are one kernel here: a block reads its own
 // worklist row from global memory.
@@ -752,6 +754,327 @@ __global__ void xform_rays_kernel(const float* __restrict__ rays,
   oo[8 * rb] = l.oz;
 }
 
+// ---------------------------------------------------------------------------
+// The worklist build of a cast (`prepare_cast`, accel/traverse.py).
+//
+// It replaces no TPU kernel: the JAX package builds the same worklists with
+// jnp in slr_tpu/accel/pallas_intersect.py's wrappers (`_ray_ranges`,
+// `_scene_exit_clamp`, `_pack_rays`, `_chunk_worklist`), and the port's plain
+// version is the same four tensor functions, which run for CPU tensors. On
+// the card those ran ~100 tensor operations a cast and made (NB, NE, RB)
+// slab-test tensors with ~30 passes over them: ~15-20 GB of traffic to
+// produce NB x NE worklist entries.
+//
+// What bounds it on an H100: bytes. A ray's origin, direction and range are
+// read (~32 B) and its packed column (64 B) and tmax written, ~96 B a ray,
+// plus the worklists (8 B an entry a block); the NE slab tests of a ray are
+// ~25 fp32 operations each, well under the byte time for the tables the
+// renderers cast against.
+//
+// What the design does about it: one launch, one block per ray block of RB
+// lanes, one owner thread per ray. A block
+//  1. reduces the union of the valid entry boxes (min and max with NaN
+//     propagating, as `amin` / `amax`: exact in any order);
+//  2. has each owner read its ray once, derive its range, clamp tmax at the
+//     scene exit, write its packed column (coalesced over the block) and
+//     keep in registers what the slab tests read;
+//  3. stages the entry boxes WL_TILE at a time in shared memory; per entry
+//     each warp takes the smallest near distance of its rays that pass the
+//     slab test (one integer minimum over the distances' ordered bits,
+//     +inf where none passes), and the warps' partials are combined in
+//     shared memory into the block's key (its near distance, +inf where no
+//     ray of the block meets the entry). The slab tests are most of the
+//     kernel's instructions: a warp of finite rays against a box with
+//     finite faces takes fminf / fmaxf, equal there to the NaN-propagating
+//     minimum and maximum that every other (warp, box) takes, and a warp
+//     of inactive lanes skips the boxes that no such lane can pass (most
+//     warps, once the wavefront's paths have ended);
+//  4. sorts the keys by (key, entry) with a bitonic sort, in the first
+//     warp's registers up to 32 entries and in shared memory above (the
+//     order of `torch.sort(stable=True)`), and writes the clamped near
+//     distances, the count and the worklist, entries past the count
+//     repeating the last listed one (entry order[0] where none is listed).
+// Above WL_MAX_SORT entries a block's keys do not fit shared memory; the
+// kernel then writes the keys and counts and the wrapper sorts them with
+// the tensor code (sort_n = 0).
+//
+// Every value equals the tensor functions' on the same CUDA tensors: the
+// build has no FMA contraction, the reciprocal is an IEEE division, and
+// min, max and clamp propagate NaN as torch.minimum / maximum / amin / amax /
+// clamp do (fminf / fmaxf would drop it).
+
+constexpr int WL_TILE = 64;         // entry boxes staged at a time
+constexpr int WL_MAX_SORT = 16384;  // the most entries a block sorts itself
+
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return a != a ? a : (b != b ? b : fminf(a, b));
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+
+// A float's bits as an unsigned that orders as the float does (+0 above
+// -0), for the warps' integer minimum; and back.
+__device__ __forceinline__ unsigned ordered(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float unordered(unsigned u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+// The slab test of `_chunk_worklist` for one ray and one entry box (A, B:
+// lo.xyz hi.x | hi.yz flag finite): tn <= tf, tf >= tmin, tn <= tmax, and
+// the box nonempty. EXACT takes the NaN-propagating minimum and maximum.
+template <bool EXACT>
+__device__ __forceinline__ bool slab(float4 A, float4 B, float ox, float oy,
+                                     float oz, float ix, float iy, float iz,
+                                     float tmin, float tmax, float& tn) {
+  const auto lo = [](float a, float b) {
+    return EXACT ? nan_min(a, b) : fminf(a, b);
+  };
+  const auto hi = [](float a, float b) {
+    return EXACT ? nan_max(a, b) : fmaxf(a, b);
+  };
+  float t0 = (A.x - ox) * ix, t1 = (A.w - ox) * ix;
+  tn = hi(-T_FAR, lo(t0, t1));
+  float tf = lo(T_FAR, hi(t0, t1));
+  t0 = (A.y - oy) * iy;
+  t1 = (B.x - oy) * iy;
+  tn = hi(tn, lo(t0, t1));
+  tf = lo(tf, hi(t0, t1));
+  t0 = (A.z - oz) * iz;
+  t1 = (B.y - oz) * iz;
+  tn = hi(tn, lo(t0, t1));
+  tf = lo(tf, hi(t0, t1));
+  return tn <= tf && tf >= tmin && tn <= tmax && B.z > 0.5f;
+}
+
+__global__ void __launch_bounds__(MAX_RB) worklist_kernel(
+    const float* __restrict__ o, const float* __restrict__ d, int r,
+    const float* __restrict__ tmin, long long tmin_step, float tmin_s,
+    const float* __restrict__ tmax, long long tmax_step, float tmax_s,
+    const unsigned char* __restrict__ active, long long active_step,
+    const float* __restrict__ f, long long f_step,
+    const float* __restrict__ boxes, int ne, int sort_n,
+    float* __restrict__ rays, float* __restrict__ tmax_out,
+    int* __restrict__ wl, int* __restrict__ cnt, float* __restrict__ near,
+    float* __restrict__ keys) {
+  extern __shared__ __align__(16) float wsm[];
+  __shared__ float sunion[6];
+  __shared__ int scount;
+  const float INF = __int_as_float(0x7f800000);
+  const int b = blockIdx.x, t = threadIdx.x, rb = blockDim.x;
+  const int lane = t & 31, warp = t >> 5, nwarps = rb >> 5;
+  float* const sbox = wsm;                           // (WL_TILE, 8)
+  float* const spart = sbox + WL_TILE * 8;           // (nwarps, WL_TILE)
+  float* const skey = spart + nwarps * WL_TILE;      // (sort_n,)
+  int* const sidx = reinterpret_cast<int*>(skey + sort_n);
+
+  // 1. The union of the valid entry boxes ([T_FAR, -T_FAR] where none is),
+  // by the first warp.
+  if (warp == 0) {
+    float u[6] = {T_FAR, T_FAR, T_FAR, -T_FAR, -T_FAR, -T_FAR};
+    for (int e = lane; e < ne; e += 32) {
+      const float* bx = boxes + (size_t)e * 8;
+      const bool valid = bx[6] > 0.5f;
+      for (int a = 0; a < 3; ++a) {
+        u[a] = nan_min(u[a], valid ? bx[a] : T_FAR);
+        u[3 + a] = nan_max(u[3 + a], valid ? bx[3 + a] : -T_FAR);
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      for (int a = 0; a < 3; ++a) {
+        u[a] = nan_min(u[a], __shfl_xor_sync(FULL, u[a], off));
+        u[3 + a] = nan_max(u[3 + a], __shfl_xor_sync(FULL, u[3 + a], off));
+      }
+    }
+    if (lane == 0) {
+      for (int a = 0; a < 6; ++a) sunion[a] = u[a];
+      scount = 0;
+    }
+  }
+  __syncthreads();
+
+  // 2. The owner's ray: range, exit clamp, packed column. Padding lanes are
+  // inert: d = (0, 0, 1), range [T_FAR, -T_FAR], row 9 = 0.
+  const long long i = (long long)b * rb + t;
+  const bool real = i < r;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 1.0f;
+  float tmin_a = T_FAR, tmax_a = -T_FAR, fv = 0.0f;
+  if (real) {
+    ox = o[3 * i];
+    oy = o[3 * i + 1];
+    oz = o[3 * i + 2];
+    dx = d[3 * i];
+    dy = d[3 * i + 1];
+    dz = d[3 * i + 2];
+    const bool act = active == nullptr || active[i * active_step] != 0;
+    if (act) {
+      tmin_a = tmin == nullptr ? tmin_s : tmin[i * tmin_step];
+      tmax_a = nan_min(tmax == nullptr ? tmax_s : tmax[i * tmax_step], T_FAR);
+    }
+    if (f != nullptr) fv = f[i * f_step];
+  }
+  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
+  if (real) {
+    const float tx = nan_max((sunion[0] - ox) * ix, (sunion[3] - ox) * ix);
+    const float ty = nan_max((sunion[1] - oy) * iy, (sunion[4] - oy) * iy);
+    const float tz = nan_max((sunion[2] - oz) * iz, (sunion[5] - oz) * iz);
+    const float exit_t =
+        nan_max(nan_min(nan_min(tx, ty), tz), 0.0f) * 1.0001f + 1e-4f;
+    tmax_a = nan_min(tmax_a, exit_t);
+    tmax_out[i] = tmax_a;
+  }
+  {
+    float* col = rays + (size_t)b * ROWS * rb + t;
+    col[0 * rb] = dx;
+    col[1 * rb] = dy;
+    col[2 * rb] = dz;
+    col[3 * rb] = real ? oy * dz - oz * dy : 0.0f;
+    col[4 * rb] = real ? oz * dx - ox * dz : 0.0f;
+    col[5 * rb] = real ? ox * dy - oy * dx : 0.0f;
+    col[6 * rb] = ox;
+    col[7 * rb] = oy;
+    col[8 * rb] = oz;
+    col[9 * rb] = real ? 1.0f : 0.0f;
+    col[10 * rb] = tmin_a;
+    col[11 * rb] = tmax_a;
+    col[12 * rb] = fv;
+    col[13 * rb] = 0.0f;
+    col[14 * rb] = 0.0f;
+    col[15 * rb] = 0.0f;
+  }
+
+  // 3. Slab tests, reduced per entry over the block into its key. A warp
+  // whose rays are all finite takes plain fminf / fmaxf on a box with
+  // finite faces: no operand there is NaN, so they equal the NaN-
+  // propagating ones; any other (warp, box) takes those.
+  // A warp whose rays all have tmax <= -T_FAR (inactive and padding lanes)
+  // and are finite skips a box whose every slab distance on some axis of
+  // each ray lies within (-T_FAR, T_FAR): there tn > -T_FAR >= tmax, so no
+  // ray passes. On the axis of a ray's smallest |1/d| a distance is at most
+  // (the box's largest |coordinate| + the ray's) x that |1/d|.
+  const bool finite = isfinite(ox) && isfinite(oy) && isfinite(oz) &&
+                      isfinite(dx) && isfinite(dy) && isfinite(dz);
+  const bool warp_fast = __all_sync(FULL, finite);
+  const bool warp_dead = __all_sync(FULL, finite && tmax_a <= -T_FAR);
+  const float warp_omax = __uint_as_float(__reduce_max_sync(
+      FULL, __float_as_uint(fmaxf(fabsf(ox), fmaxf(fabsf(oy), fabsf(oz))))));
+  const float warp_imin = __uint_as_float(__reduce_max_sync(
+      FULL, __float_as_uint(fminf(fabsf(ix), fminf(fabsf(iy), fabsf(iz))))));
+  const float4* const sbox4 = reinterpret_cast<const float4*>(sbox);
+  unsigned* const upart = reinterpret_cast<unsigned*>(spart);
+  int listed = 0;
+  for (int e0 = 0; e0 < ne; e0 += WL_TILE) {
+    const int n = min(WL_TILE, ne - e0);
+    for (int k = t; k < n * 8; k += rb) sbox[k] = boxes[(size_t)e0 * 8 + k];
+    __syncthreads();
+    if (t < n) {  // column 7 (padding) <- the largest |coordinate|, or
+      float* bx = sbox + t * 8;  // +inf where a face is not finite
+      float m = 0.0f;
+      bool fin = true;
+      for (int a = 0; a < 6; ++a) {
+        fin = fin && isfinite(bx[a]);
+        m = fmaxf(m, fabsf(bx[a]));
+      }
+      bx[7] = fin ? m : INF;
+    }
+    __syncthreads();
+    for (int e = 0; e < n; ++e) {
+      const float4 A = sbox4[2 * e], B = sbox4[2 * e + 1];
+      unsigned v = ordered(INF);  // +inf: no ray passes
+      if (!(warp_dead && (B.w + warp_omax) * warp_imin < 1e38f)) {
+        float tn;
+        const bool ok = warp_fast && B.w < INF
+                            ? slab<false>(A, B, ox, oy, oz, ix, iy, iz,
+                                          tmin_a, tmax_a, tn)
+                            : slab<true>(A, B, ox, oy, oz, ix, iy, iz,
+                                         tmin_a, tmax_a, tn);
+        // A passing ray's tn is a number <= tmax <= T_FAR.
+        v = __reduce_min_sync(FULL, ordered(ok ? tn : INF));
+      }
+      if (lane == 0) upart[warp * WL_TILE + e] = v;
+    }
+    __syncthreads();
+    for (int e = t; e < n; e += rb) {
+      unsigned v = upart[e];
+      for (int w = 1; w < nwarps; ++w) v = min(v, upart[w * WL_TILE + e]);
+      const float key = unordered(v);
+      listed += key < INF;
+      if (sort_n > 0) {
+        skey[e0 + e] = key;
+        sidx[e0 + e] = e0 + e;
+      } else {
+        keys[(size_t)b * ne + e0 + e] = key;
+      }
+    }
+  }
+  if (listed) atomicAdd(&scount, listed);
+  __syncthreads();
+  const int count = scount;
+  if (t == 0) cnt[b] = count;
+  if (sort_n == 0) return;
+
+  // 4. Bitonic sort by (key, entry); the padding sorts last. Up to 32
+  // entries the first warp sorts them in registers.
+  if (sort_n == 32) {
+    if (warp == 0) {
+      float k = lane < ne ? skey[lane] : INF;
+      int e = lane;
+      for (int size = 2; size <= 32; size <<= 1) {
+        for (int j = size >> 1; j > 0; j >>= 1) {
+          const float ko = __shfl_xor_sync(FULL, k, j);
+          const int eo = __shfl_xor_sync(FULL, e, j);
+          const bool first = ko < k || (ko == k && eo < e);
+          // The lower lane of an ascending pair keeps the first.
+          if (first == (((lane & j) == 0) == ((lane & size) == 0))) {
+            k = ko;
+            e = eo;
+          }
+        }
+      }
+      skey[lane] = k;
+      sidx[lane] = e;
+    }
+  } else {
+    for (int e = ne + t; e < sort_n; e += rb) {
+      skey[e] = INF;
+      sidx[e] = e;
+    }
+    for (int k = 2; k <= sort_n; k <<= 1) {
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        __syncthreads();
+        for (int q = t; q < sort_n / 2; q += rb) {
+          const int lo = 2 * q - (q & (j - 1)), hi = lo + j;
+          const float ka = skey[lo], kb = skey[hi];
+          const int ia = sidx[lo], ib = sidx[hi];
+          const bool after = ka > kb || (ka == kb && ia > ib);
+          if (after == ((lo & k) == 0)) {
+            skey[lo] = kb;
+            skey[hi] = ka;
+            sidx[lo] = ib;
+            sidx[hi] = ia;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const int last = sidx[count > 0 ? count - 1 : 0];
+  for (int p = t; p < ne; p += rb) {
+    near[(size_t)b * ne + p] = fminf(skey[p], T_FAR);
+    wl[(size_t)b * ne + p] = p < count ? sidx[p] : last;
+  }
+}
+
+size_t worklist_bytes(int rb, int sort_n) {
+  return sizeof(float) * ((size_t)WL_TILE * 8 + (size_t)(rb / 32) * WL_TILE) +
+         (sizeof(float) + sizeof(int)) * (size_t)sort_n;
+}
+
 // A traversal kernel needs more than 48 KB of shared memory, which a
 // launch may use only after this attribute is set.
 template <typename K>
@@ -882,6 +1205,39 @@ int slr_xform_rays(const float* rays, const float* trs_rows, float* out,
     xform_rays_kernel<<<nb, rb, 0, static_cast<cudaStream_t>(stream)>>>(
         rays, trs_rows, out);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The worklist build of one cast (see worklist_kernel). tmin, tmax, active
+// and f are per-ray with the given element steps (0: one value for all), or
+// null: tmin_s / tmax_s for all rays, every ray active, f = 0. sort_n is a
+// power of two >= max(ne, 32) and <= WL_MAX_SORT, or 0: then `keys`
+// (NB, NE) and `cnt` are written, and not `wl` and `near`.
+int slr_build_worklists(const float* o, const float* d, const float* tmin,
+                        const float* tmax, const unsigned char* active,
+                        const float* f, const float* boxes, float* rays,
+                        float* tmax_out, int* wl, int* cnt, float* near,
+                        float* keys, long long tmin_step, long long tmax_step,
+                        long long active_step, long long f_step, float tmin_s,
+                        float tmax_s, int r, int nb, int rb, int ne,
+                        int sort_n, void* stream) {
+  if (rb < 32 || rb > MAX_RB || rb % 32 != 0 || ne < 1 || sort_n < 0 ||
+      sort_n > WL_MAX_SORT || (sort_n & (sort_n - 1)) != 0 ||
+      (sort_n > 0 && (sort_n < ne || sort_n < 32))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (nb <= 0) return static_cast<int>(cudaGetLastError());
+  const size_t bytes = worklist_bytes(rb, sort_n);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        worklist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  worklist_kernel<<<nb, rb, bytes, static_cast<cudaStream_t>(stream)>>>(
+      o, d, r, tmin, tmin_step, tmin_s, tmax, tmax_step, tmax_s, active,
+      active_step, f, f_step, boxes, ne, sort_n, rays, tmax_out, wl, cnt,
+      near, keys);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -510,7 +510,8 @@ def test_plain_versions_do_not_count_launches(scenes):
     tv.anyhit_pallas(own.geometry, own.pallas_tris, o, d, tmax=1.0, f=f)
     rays, _ = tv._pack_rays(o, d, torch.zeros(64), torch.zeros(64), 64, f)
     tv.xform_rays(rays, own.pallas_tris.inst_trs[:1])
-    assert tv.LAUNCHES == {"closest_hit": 0, "any_hit": 0, "xform_rays": 0}
+    assert tv.LAUNCHES == {"closest_hit": 0, "any_hit": 0, "xform_rays": 0,
+                           "worklist": 0, "worklist_tensor_sort": 0}
 
 
 # -- (d) surface points on instanced hits --------------------------------------
@@ -638,7 +639,8 @@ def test_cuda_instanced_kernels_match_plain_versions():
     torch.testing.assert_close(tv.xform_rays(rays, rows),
                                tv.xform_rays_plain(rays, rows),
                                rtol=1e-5, atol=1e-5)
-    assert tv.LAUNCHES == {"closest_hit": 1, "any_hit": 1, "xform_rays": 1}
+    assert tv.LAUNCHES == {"closest_hit": 1, "any_hit": 1, "xform_rays": 1,
+                           "worklist": 2, "worklist_tensor_sort": 0}
     # Through the casts the kernels' own counts land in `WORK`: tests over
     # the chunks' triangles (not their padding) and transforms, both kinds.
     tv.track_work("cuda")
@@ -650,4 +652,5 @@ def test_cuda_instanced_kernels_match_plain_versions():
     finally:
         tv.track_work(None)
     assert work[1] == int(xforms.sum()) and min(work) > 0
-    assert tv.LAUNCHES == {"closest_hit": 2, "any_hit": 2, "xform_rays": 1}
+    assert tv.LAUNCHES == {"closest_hit": 2, "any_hit": 2, "xform_rays": 1,
+                           "worklist": 4, "worklist_tensor_sort": 0}

@@ -201,7 +201,8 @@ def test_plain_versions_do_not_count_launches(scenes):
     o, d = (torch.as_tensor(x) for x in _rand_rays(64, seed=2))
     tv.intersect_pallas(port.geometry, port.pallas_tris, o, d)
     tv.anyhit_pallas(port.geometry, port.pallas_tris, o, d, tmax=1.0)
-    assert tv.LAUNCHES == {"closest_hit": 0, "any_hit": 0, "xform_rays": 0}
+    assert tv.LAUNCHES == {"closest_hit": 0, "any_hit": 0, "xform_rays": 0,
+                           "worklist": 0, "worklist_tensor_sort": 0}
 
 
 @pytest.mark.cuda
@@ -225,4 +226,5 @@ def test_cuda_kernels_match_plain_versions():
     rays, wl, cnt, wtn, _ = tv.prepare_cast(pt, o, d, 1e-4, 0.7, active)
     assert torch.equal(tv.any_hit(rays, wl, wtn, cnt, pt),
                        tv.any_hit_plain(rays, wl, cnt, pt))
-    assert tv.LAUNCHES == {"closest_hit": 1, "any_hit": 1, "xform_rays": 0}
+    assert tv.LAUNCHES == {"closest_hit": 1, "any_hit": 1, "xform_rays": 0,
+                           "worklist": 2, "worklist_tensor_sort": 0}
