@@ -15,6 +15,11 @@ Each iteration is a `wavefront.iter` span (utils/metrics.py) holding the
 casts' spans and the phases `wavefront.shade` (twice), `wavefront.bank`,
 `wavefront.sort` and `wavefront.sync`. Work counters are uint32 values held
 in int64.
+
+Once the queue has drained, the lanes are cut to the live ones between
+iterations (`_cut_width`, `_compact`, each cut a `wavefront.compact`
+span), so that the pass's long tail of a few deep paths runs every kernel
+over a width near its live lanes, not over all of them.
 """
 from __future__ import annotations
 
@@ -61,6 +66,10 @@ DEFAULT_MAX_DEPTH = 100
 # Lanes in flight. The reference's default, kept because results do not
 # depend on it; tuning it for the card is separate work.
 DEFAULT_LANE_CAP = 49152
+
+# The narrowest width the lanes are cut to (accel/traverse.py's ray block,
+# RB): a render of this many lanes or fewer is never cut.
+COMPACT_MIN_LANES = 256
 
 
 class LaneState(NamedTuple):
@@ -127,6 +136,32 @@ def _pick(cond: Tensor, a: Tensor, b: Tensor) -> Tensor:
     return torch.where(cond.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
 
 
+def _cut_width(n_live: int) -> int:
+    """The width to cut the lanes to while `n_live` of them hold work: the
+    smallest power of two that is at least COMPACT_MIN_LANES and n_live.
+    Powers of two keep the widths a pass runs at few: after the first cut
+    each one at least halves the width."""
+    return max(COMPACT_MIN_LANES, 1 << (n_live - 1).bit_length())
+
+
+def _compact(lane: LaneState, ones: Tensor, total: int, n: int,
+             sort_rays: bool) -> tuple[LaneState, Tensor]:
+    """The lanes cut to their first `n` after the live ones are
+    brought there in their order. Only valid once the queue has drained
+    (some lane has work >= total): claims go out in rank order, so no lane
+    takes work again, and the cut lanes were bound to stay idle.
+
+    Sorted lanes hold the live ones as a prefix already (inactive lanes key
+    last, the sort is stable, and the first lanes' work is ascending), so
+    the cut is a view. Otherwise a stable sort of the drained flag gathers
+    the live lanes first, in their order, and drained ones after them."""
+    if sort_rays:
+        return LaneState(*(x[:n] for x in lane)), ones[:n]
+    keep = torch.argsort((lane.work >= total).to(torch.int8),
+                         stable=True)[:n]
+    return LaneState(*(x[keep] for x in lane)), ones[:n]
+
+
 def _run_wavefront(scene: FlatScene, n_pix: int, spp_end: int, seed: int,
                    width: int, height: int, sample_offset: int,
                    max_depth: int, n_lanes: int | None = None,
@@ -172,10 +207,20 @@ def _run_wavefront(scene: FlatScene, n_pix: int, spp_end: int, seed: int,
     film = torch.zeros((n_pix + 1, s_film), dtype=torch.float32, device=dev)
     n_iters = 0
     # The loop's test for remaining work is its one host sync an
-    # iteration; it counts the live lanes, which the iteration's span keeps.
+    # iteration; it counts the live lanes, which the iteration's span keeps
+    # with the width it runs over. A live count below the width means the
+    # queue has drained: the lanes are then cut to a power of two below
+    # the width where one still holds the live ones.
     n_live = int((lane.work < total).sum())
     while n_live > 0:
-        with span("wavefront.iter", it=n_iters, live=n_live, lanes=r):
+        lanes = lane.work.shape[0]
+        cut = _cut_width(n_live)
+        if cut < lanes:
+            with span("wavefront.compact", it=n_iters, live=n_live,
+                      lanes_from=lanes, lanes_to=cut):
+                lane, ones = _compact(lane, ones, total, cut, sort_rays)
+            lanes = cut
+        with span("wavefront.iter", it=n_iters, live=n_live, lanes=lanes):
             lane, counter = _iteration(
                 scene, lane, counter, film, ones, total, n_pix, sample_offset,
                 seed, width, height, s, spectral, max_depth, sort_rays)

@@ -14,10 +14,13 @@ render pass, or `--steps` gradient steps):
    under the profiler's device activities and the CUDA runtime's launch
    records: calls and device ms by span name; the phases (children of a
    `wavefront.iter` or `pt.bounce` span) summed against the device's busy
-   time and the window; the device's idle time by the innermost span open
-   at each gap's start (for the gradient cell, of the gaps that start in
-   the forward); and each kernel's device time and launches by the span
-   that launched it, matched through the launch's correlation id.
+   time and the window; each wavefront iteration's live lanes and the
+   width it ran over, and the pass's cuts of that width (its
+   `wavefront.compact` spans); the device's idle time by the innermost
+   span open at each gap's start (for the gradient cell, of the gaps that
+   start in the forward); and each kernel's device time and launches by
+   the span that launched it, matched through the launch's correlation
+   id.
 
 Prints one JSON object per cell, appended to `--out` too.
 """
@@ -166,6 +169,13 @@ def report(run, launch, corr) -> dict:
             r.counts["live"] for r in iter_recs) / sum(
             r.counts["lanes"] for r in iter_recs)
         out["live_by_iter"] = [r.counts["live"] for r in iter_recs]
+        out["lanes_by_iter"] = [r.counts["lanes"] for r in iter_recs]
+        cuts = [r for r in recs if r.name == "wavefront.compact"]
+        out["compact"] = {
+            "cuts": len(cuts),
+            "iter_live_from_to": [[r.iter, r.counts["live"],
+                                   r.counts["lanes_from"],
+                                   r.counts["lanes_to"]] for r in cuts]}
 
     # Idle by the innermost span at each gap's start; for the gradient
     # cell, of the gaps that start inside the benchmark's forward spans.
